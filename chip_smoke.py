@@ -2,25 +2,39 @@
 
     python3 chip_smoke.py
 
-Builds the port's two libraries from the checkout at first use, at the
-same time: the C decoder (gcc, `easyav1_tpu_torch/native`) and the CUDA
-kernel (nvcc, `easyav1_tpu_torch/csrc/intra_strip.cu`, whose ptxas report
-it prints).  Then:
+Builds the port's three libraries from the checkout at first use, all at
+once: the C decoder (gcc, `easyav1_tpu_torch/native`) and the CUDA
+kernels (nvcc, `easyav1_tpu_torch/csrc/intra_strip.cu` and
+`csrc/inter_mc.cu`, whose ptxas reports it prints).  Then:
 
-1. holds the kernel against its plain torch version on the card,
-   exactly: seeded random unit programs of every class under the
-   sequential schedule; the key frames of the 1080p intra stream and of
-   the 4K stream under the superblock wavefront; and 20 wavefront runs
-   of the 4K key frame, each bit-equal to the first (a race shows here);
-2. drives the port's main path: all 30 frames of
-   tests/data/bench/bench_av1_intra_1920x1080_30.webm through
-   `easyav1_tpu_torch.EasyAV1(path, device="cuda")`, every frame's hash
-   equal to the port's native C session's, no fallback, and exactly one
-   kernel launch a frame; then the 4K key frame the same way;
-3. times, in this run: the kernel under the wavefront and under the
-   sequential schedule at 1080p and 4K (CUDA events), its plain
-   version, deblocking + CDEF, and the port's fps beside the native C
-   session's.
+1. holds every kernel against its plain torch version on the card,
+   exactly: the strip kernel on seeded random unit programs of every
+   class under the sequential schedule, on intrabc programs under the
+   sequential schedule and on interintra programs in place on a base
+   plane, on the key frames of the 1080p intra stream and of the 4K
+   stream under the superblock wavefront, with 20 wavefront runs of the
+   4K key frame each bit-equal to the first, and on the pred units of a
+   1080p and a 4K inter frame in place on their MC planes; the MC kernel
+   (6a) and the OBMC kernel (6b) on seeded random MC programs of every
+   unit kind at 1080p, 6a on the 1080p inter frame, and 20 runs of 6a
+   on the 4K inter frame, each bit-equal to the first (a race shows
+   here);
+2. drives the port's main path through `easyav1_tpu_torch.EasyAV1(path,
+   device="cuda")`, each stream with the launch counts set to 0 just
+   before it and read just after: all 30 frames of
+   tests/data/bench/bench_av1_intra_1920x1080_30.webm, all 60 frames of
+   bench_av1_inter_1920x1080_60.webm, all 24 frames of
+   bench_av1_4k_3840x2160_24.webm, and the 8 frames of
+   tests/data/smoke/inter_modes_96x96.webm (compound, warps and OBMC,
+   which the bench streams lack); every frame's hash equal to the port's
+   native C session's, no fallback, one strip launch a frame, and every
+   kernel launched;
+3. times, in this run (CUDA events for kernels, the host clock around
+   synchronised work for stages): the strip kernel under the wavefront
+   and the sequential schedule at 1080p and 4K, 6a on a 1080p and a 4K
+   inter frame, 6b on a random OBMC program, their plain versions,
+   deblocking + CDEF, the stages of the 1080p inter stream's frames, and
+   the port's fps beside the native C session's on both 1080p streams.
 
 The smoke imports only torch and `easyav1_tpu_torch`, and checks that
 neither jax nor easyav1_tpu was imported.  Every phase raises on
@@ -35,14 +49,23 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 import easyav1_tpu_torch
-from easyav1_tpu_torch import _build, native
+from easyav1_tpu_torch import _build, convert, native
 from easyav1_tpu_torch.api import frame_hash, native_session
+from easyav1_tpu_torch.native import pipe
 from easyav1_tpu_torch.native.pipe import first_frame_inputs
-from easyav1_tpu_torch.unit_programs import program_frame, random_program
-from easyav1_tpu_torch.video.av1.recon import intra_strip
+from easyav1_tpu_torch.unit_programs import (
+    program_frame, random_ibc_program, random_interintra_program,
+    random_mc_program, random_program)
+from easyav1_tpu_torch.video.av1.recon import inter_mc, intra_strip
+from easyav1_tpu_torch.video.av1.recon.mc_plan import (
+    P_MODE, P_PRED0, P_PRED1, P_VALID, P_X, P_Y, S_FH, S_FV, S_IX, S_IY,
+    S_NORES, S_SLOT, S_VALID, S_X, S_Y, W_IX4, W_IY4, W_SLOT, W_VALID, W_X,
+    W_Y)
+from easyav1_tpu_torch.video.av1.recon.inter_exec import InterRecon, ii_masks
 from easyav1_tpu_torch.video.av1.recon.records import preprocess_units
 from easyav1_tpu_torch.video.av1.recon.postfilter import (postfilter_apply,
                                                           postfilter_maps)
@@ -50,8 +73,15 @@ from easyav1_tpu_torch.video.av1.recon.postfilter import (postfilter_apply,
 REPO = os.path.dirname(os.path.abspath(__file__))
 BENCH = os.path.join(REPO, "tests", "data", "bench")
 INTRA_1080 = os.path.join(BENCH, "bench_av1_intra_1920x1080_30.webm")
+INTER_1080 = os.path.join(BENCH, "bench_av1_inter_1920x1080_60.webm")
 KEY_4K = os.path.join(BENCH, "bench_av1_4k_3840x2160_24.webm")
+MODES = os.path.join(REPO, "tests", "data", "smoke", "inter_modes_96x96.webm")
 SEEDS = [301, 304, 305, 317, 310, 311, 312, 313]
+SCAN_SEEDS = [301, 303, 302, 310, 311, 319]
+MC_SEEDS = [21, 22, 23]
+# the kernels' launch counters, by the name of the kernels line
+COUNTERS = {"intra_strip": intra_strip.strip_exec_frame,
+            "inter_mc": inter_mc.mc_launch, "obmc": inter_mc.obmc_launch}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 INT32_OPS_PER_S = 33.5e12   # half the 67 TFLOP/s of float32 outside tensor cores
 
@@ -62,16 +92,28 @@ def check(cond, what):
 
 
 def build():
-    """Both libraries, built at once; prints ptxas's report."""
+    """The three libraries, built at once; prints ptxas's reports."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:
-        jobs = [ex.submit(native._load), ex.submit(_build.load, "intra_strip")]
+    with ThreadPoolExecutor(3) as ex:
+        jobs = [ex.submit(native._load), ex.submit(_build.build, "intra_strip"),
+                ex.submit(_build.build, "inter_mc")]
         for j in jobs:
             j.result()
-    print(f"build (gcc and nvcc at once) {time.perf_counter() - t0:.3f} s")
-    for line in (_build.BUILD / "intra_strip.log").read_text().splitlines():
-        if "ptxas info" in line and ("Used" in line or "bytes" in line):
-            print(line.strip())
+    print(f"build (gcc and two nvcc at once) {time.perf_counter() - t0:.3f} s")
+    for name in ("intra_strip", "inter_mc"):
+        _build.load(name)
+        for line in (_build.BUILD / f"{name}.log").read_text().splitlines():
+            if "ptxas info" in line and ("Used" in line or "bytes" in line):
+                print(f"{name}: {line.strip()}")
+
+
+def reset_counts():
+    for fn in COUNTERS.values():
+        fn.launches = 0
+
+
+def counts():
+    return {name: fn.launches for name, fn in COUNTERS.items()}
 
 
 def decode_hashes(make, limit=None):
@@ -185,34 +227,209 @@ def check_kernel(dev):
     return err, frames
 
 
+SCAN_CASES = [("intrabc", 301), ("intrabc", 303), ("intrabc", 302),
+              ("interintra", 310), ("interintra", 311),
+              ("interintra", 319)]
+
+
+def check_scan_units(dev):
+    """Phase 1: the strip kernel on intrabc programs under the
+    sequential schedule and on interintra programs in place on a base
+    plane, against its plain version, tolerance 0."""
+    err = 0
+    for kind, seed in SCAN_CASES:
+        prog = (random_ibc_program(seed, 68, 120, 400, 100)
+                if kind == "intrabc" else
+                random_interintra_program(seed, 68, 120, 400))
+        pf = program_frame(prog)
+        fields = preprocess_units(pf["units"], prog["dims"])
+        masks = []
+        for p in range(3):
+            fields[p], m = ii_masks(fields[p], p, 1, 1, 64 if p == 0 else 32)
+            intra_strip.check_units(fields[p], prog["dims"][p], p > 0,
+                                    0 if m is None else m.shape[0],
+                                    64 if p == 0 else 32)
+            masks.append(None if m is None else torch.from_numpy(m).to(dev))
+        fr = Frame(fields, pf["resid"], prog["dims"], None, dev)
+        base = prog.get("base") or [np.zeros(d, np.int32)
+                                    for d in prog["dims"]]
+
+        def planes():
+            return [torch.from_numpy(b.copy()).to(dev) for b in base]
+
+        got = intra_strip.strip_exec_frame(fr.fields, fr.resid, fr.dims, 8,
+                                           fr.sequential, planes(), masks)
+        want = intra_strip.strip_exec_frame_plain(fr.fields, fr.resid,
+                                                  fr.dims, 8, planes(), masks)
+        e = max_err(got, want)
+        n_ii = sum(m.shape[0] for m in masks if m is not None)
+        print(f"{kind} program seed {seed} plane {prog['plane']}: "
+              f"{int((pf['units'][:, 5] == 11).sum())} intrabc units, "
+              f"{n_ii} interintra units, max_abs_err {e}")
+        err = max(err, e)
+    check(err == 0, f"strip kernel on intrabc/interintra max_abs_err {err}")
+    return err
+
+
+def mc_inputs(prog, dev):
+    """A random MC program's (resid, refs) on the card."""
+    return ([torch.from_numpy(r).to(dev) for r in prog["resid"]],
+            [[torch.from_numpy(r).to(dev) for r in rs]
+             for rs in prog["refs"]])
+
+
+def zero_planes(dims, dev):
+    return [torch.zeros(d, dtype=torch.int32, device=dev) for d in dims]
+
+
+def check_mc(dev):
+    """Phase 1: kernels 6a and 6b on random 1080p MC programs of every
+    unit kind, against their plain versions, tolerance 0.  Returns
+    (6a error, 6b error, the last program)."""
+    err_mc = err_obmc = 0
+    for seed in MC_SEEDS:
+        prog = random_mc_program(seed, 1920, 1080)
+        resid, refs = mc_inputs(prog, dev)
+        plan = prog["plan"]
+        got = inter_mc.mc_units(zero_planes(prog["dims"], dev), resid, refs,
+                                plan, 8)
+        want = inter_mc.mc_units_plain(zero_planes(prog["dims"], dev), resid,
+                                       refs, plan, 8)
+        e_mc = max_err(got, want)
+        got = inter_mc.obmc(got, resid, refs, plan, 8)
+        want = inter_mc.obmc_plain(want, resid, refs, plan, 8)
+        e_ob = max_err(got, want)
+
+        def n(name):
+            return sum(v.shape[0] for v in plan[name].values())
+
+        n_masked = sum(int((v[:, P_MODE] == 1).sum())
+                       for v in plan["pairs"].values())
+        print(f"MC program seed {seed}: {n('singles')} single, "
+              f"{n('pairs')} pair ({n_masked} masked), {n('warps')} warp, "
+              f"{n('obmc_above') + n('obmc_left')} OBMC overlay units, "
+              f"{inter_mc.mc_tables(plan)['tiles'].shape[0]} tiles; "
+              f"6a max_abs_err {e_mc}, 6b max_abs_err {e_ob}")
+        err_mc, err_obmc = max(err_mc, e_mc), max(err_obmc, e_ob)
+    check(err_mc == 0 and err_obmc == 0,
+          f"MC kernels vs plain max_abs_err {err_mc}, {err_obmc}")
+    return err_mc, err_obmc, prog
+
+
+def capture_inter(path, index, dev):
+    """The device inputs of a stream's first inter frame from frame
+    `index` on that has pred units, decoded through the port: {"dims",
+    "resid", "plan", "refs"} of its MC, and {"fields", "masks",
+    "schedule", "base"} of its strip kernel launch ("base": a copy of
+    the MC planes it starts from)."""
+    got, cur = {}, {}
+    motion, intra = InterRecon.motion, InterRecon.intra
+
+    def spy_motion(self, resid, plan, refs):
+        cur.update(n=cur.get("n", 0) + 1, dims=self.dims, resid=resid,
+                   plan=plan, refs=refs)
+        return motion(self, resid, plan, refs)
+
+    def spy_intra(self, planes, fields, resid, masks, schedule):
+        if cur["n"] >= index and "base" not in got \
+                and any(f.shape[0] for f in fields):
+            got.update(cur, fields=fields, masks=masks, schedule=schedule,
+                       base=[p.clone() for p in planes])
+        return intra(self, planes, fields, resid, masks, schedule)
+
+    InterRecon.motion, InterRecon.intra = spy_motion, spy_intra
+    try:
+        decode_hashes(lambda: easyav1_tpu_torch.EasyAV1(path, device="cuda"))
+    finally:
+        InterRecon.motion, InterRecon.intra = motion, intra
+    check("base" in got, f"{path}: no inter frame with pred units")
+    return got
+
+
+def strip_inter(c, base=None):
+    """The strip kernel on a captured inter frame's units, in place on
+    `base` (default: a copy of its MC planes)."""
+    return intra_strip.strip_exec_frame(
+        c["fields"], c["resid"], c["dims"], 8, c["schedule"],
+        base if base is not None else [b.clone() for b in c["base"]],
+        c["masks"])
+
+
+def check_inter_frames(dev):
+    """Phase 1: 6a on a 1080p inter frame and the strip kernel on the
+    pred units of a 1080p and a 4K inter frame, in place on their MC
+    planes, against their plain versions; 20 runs of 6a on the 4K
+    frame, each bit-equal to the first.  Returns (6a error, strip
+    kernel error, the captured frames)."""
+    caps = {"1080p": capture_inter(INTER_1080, 2, dev),
+            "4K": capture_inter(KEY_4K, 2, dev)}
+    for cap in caps.values():
+        cap["tabs"] = convert.from_reference(
+            inter_mc.mc_tables(cap["plan"]), dev)
+    c = caps["1080p"]
+    got = inter_mc.mc_launch(zero_planes(c["dims"], dev), c["resid"],
+                             c["refs"], c["tabs"], 8)
+    want = inter_mc.mc_units_plain(zero_planes(c["dims"], dev), c["resid"],
+                                   c["refs"], c["plan"], 8)
+    err = max_err(got, want)
+    print(f"1080p inter frame {c['n']}: {c['tabs']['tiles'].shape[0]} "
+          f"tiles, 6a max_abs_err {err}")
+    check(err == 0, f"6a on the 1080p inter frame max_abs_err {err}")
+    e = 0
+    for name, c in caps.items():
+        e = max(e, max_err(strip_inter(c), intra_strip.strip_exec_frame_plain(
+            c["fields"], c["resid"], c["dims"], 8,
+            [b.clone() for b in c["base"]], c["masks"])))
+        print(f"{name} inter frame {c['n']}: "
+              f"{sum(f.shape[0] for f in c['fields'])} pred units, strip "
+              f"kernel in place on the MC planes max_abs_err {e}")
+    check(e == 0, f"strip kernel on the inter frames max_abs_err {e}")
+    c = caps["4K"]
+    first = inter_mc.mc_launch(zero_planes(c["dims"], dev), c["resid"],
+                               c["refs"], c["tabs"], 8)
+    for k in range(20):
+        again = inter_mc.mc_launch(zero_planes(c["dims"], dev), c["resid"],
+                                   c["refs"], c["tabs"], 8)
+        check(all(torch.equal(a, b) for a, b in zip(again, first)),
+              f"4K 6a run {k} differs from the first")
+    print(f"4K inter frame {c['n']}: {c['tabs']['tiles'].shape[0]} tiles, "
+          "20 runs of 6a bit-equal to the first")
+    return err, e, caps
+
+
+STREAMS = [("1080p intra", INTRA_1080, 30, False),
+           ("1080p inter", INTER_1080, 60, True),
+           ("4K", KEY_4K, 24, True),
+           ("inter modes 96x96", MODES, 8, True)]
+
+
 def main_path():
-    """Phase 2: the port's main path, hash-equal to native C."""
-    easyav1_tpu_torch.stats.update(frames=0, fallbacks=0)
-    intra_strip.strip_exec_frame.launches = 0
-    port, _ = decode_hashes(
-        lambda: easyav1_tpu_torch.EasyAV1(INTRA_1080, device="cuda"))
-    launches = intra_strip.strip_exec_frame.launches
-    stats = dict(easyav1_tpu_torch.stats)
-    native_h, _ = decode_hashes(lambda: native_session(INTRA_1080))
-    print(f"main path 1080p: {len(port)} frames, stats {stats}, "
-          f"intra_strip launches {launches}")
-    check(len(port) == 30 and port == native_h,
-          f"1080p hashes {len(port)} frames, "
-          f"{sum(a != b for a, b in zip(port, native_h))} differ")
-    check(stats == {"frames": 30, "fallbacks": 0}, f"stats {stats}")
-    check(launches == 30, f"launches {launches}, want one a frame")
-    easyav1_tpu_torch.stats.update(frames=0, fallbacks=0)
-    intra_strip.strip_exec_frame.launches = 0
-    port4k, _ = decode_hashes(
-        lambda: easyav1_tpu_torch.EasyAV1(KEY_4K, device="cuda"), limit=1)
-    launches4k = intra_strip.strip_exec_frame.launches
-    stats = dict(easyav1_tpu_torch.stats)
-    native4k, _ = decode_hashes(lambda: native_session(KEY_4K), limit=1)
-    print(f"main path 4K key frame: hash port {port4k} native {native4k}, "
-          f"stats {stats}, intra_strip launches {launches4k}")
-    check(len(port4k) == 1 and port4k == native4k, "4K key frame hash")
-    check(stats["fallbacks"] == 0 and launches4k >= 1, f"4K stats {stats}")
-    return launches
+    """Phase 2: the port's main path, hash-equal to native C, each
+    stream with the launch counts set to 0 just before it and read just
+    after.  Returns the launches of each kernel over all streams."""
+    total = dict.fromkeys(COUNTERS, 0)
+    for name, path, n, inter in STREAMS:
+        easyav1_tpu_torch.stats.update(frames=0, fallbacks=0)
+        reset_counts()
+        port, _ = decode_hashes(
+            lambda: easyav1_tpu_torch.EasyAV1(path, device="cuda"))
+        c = counts()
+        stats = dict(easyav1_tpu_torch.stats)
+        native_h, _ = decode_hashes(lambda: native_session(path))
+        print(f"main path {name}: {len(port)} frames, stats {stats}, "
+              f"launches {c}")
+        check(len(port) == n and port == native_h,
+              f"{name} hashes: {len(port)} frames, "
+              f"{sum(a != b for a, b in zip(port, native_h))} differ")
+        check(stats["fallbacks"] == 0 and stats["frames"] >= n,
+              f"{name} stats {stats}")
+        check(c["intra_strip"] == stats["frames"],
+              f"{name}: strip launches {c['intra_strip']}, want one a frame")
+        check(not inter or c["inter_mc"] >= 1, f"{name}: no MC launch")
+        for k in total:
+            total[k] += c[k]
+    check(all(v > 0 for v in total.values()), f"a kernel never ran: {total}")
+    return total
 
 
 def timings(frames, dev):
@@ -256,6 +473,214 @@ def timings(frames, dev):
     return out
 
 
+def covered(shape, y0, x0, y1, x1):
+    """How many pixels of an [h, w] plane at least one of the rects
+    [y0, y1) x [x0, x1) covers, each rect clipped to the plane."""
+    h, w = shape
+    y0, y1 = np.clip(y0, 0, h), np.clip(y1, 0, h)
+    x0, x1 = np.clip(x0, 0, w), np.clip(x1, 0, w)
+    k = (y1 > y0) & (x1 > x0)
+    d = np.zeros((h + 1, w + 1), np.int32)
+    for ys, xs, s in ((y0, x0, 1), (y0, x1, -1), (y1, x0, -1), (y1, x1, 1)):
+        np.add.at(d, (ys[k], xs[k]), s)
+    return int((d.cumsum(0).cumsum(1) > 0).sum())
+
+
+class Footprint:
+    """The bytes a kernel must move on this run's data: the pixels that
+    its units read or write, each pixel counted once per plane however
+    many units touch it, times the bytes it moves per pixel."""
+
+    def __init__(self):
+        self.rects = {}
+
+    def add(self, key, shape, size, y0, x0, y1, x1):
+        r = self.rects.setdefault(key, (shape, size, []))
+        r[2].append(np.stack([np.asarray(a, np.int64).ravel()
+                              for a in (y0, x0, y1, x1)]))
+
+    def out(self, key, shape, size, f, xcol, ycol, w, h, keep=None):
+        """The output rects of units f at (f[:, xcol], f[:, ycol])."""
+        if keep is not None:
+            f = f[keep]
+        self.add(key, shape, size, f[:, ycol], f[:, xcol], f[:, ycol] + h,
+                 f[:, xcol] + w)
+
+    def window(self, p, refs, f, slot, y0, x0, y1, x1):
+        """Reference windows [y0, y1) x [x0, x1) of units f, clamped to
+        the edge of each unit's slot as the kernels clamp them."""
+        for s in np.unique(f[:, slot]):
+            rh, rw = refs[p][s].shape
+            k = f[:, slot] == s
+            self.add(("ref", p, int(s)), (rh, rw), 1,
+                     np.clip(y0[k], 0, rh - 1), np.clip(x0[k], 0, rw - 1),
+                     np.clip(y1[k] - 1, 0, rh - 1) + 1,
+                     np.clip(x1[k] - 1, 0, rw - 1) + 1)
+
+    def taps(self, p, refs, f, b_slot, b_ix, b_iy, b_fh, b_fv, w, h):
+        """The windows of 8-tap units: only the rows and columns of
+        their live (nonzero) taps, so a whole-pixel motion reads w x h."""
+        def live(taps):
+            nz = taps != 0
+            return nz.argmax(1), 7 - nz[:, ::-1].argmax(1)
+
+        r0, r1 = live(f[:, b_fv:b_fv + 8])
+        c0, c1 = live(f[:, b_fh:b_fh + 8])
+        iy, ix = f[:, b_iy], f[:, b_ix]
+        self.window(p, refs, f, b_slot, iy - 3 + r0, ix - 3 + c0,
+                    iy - 3 + r1 + h, ix - 3 + c1 + w)
+
+    def nbytes(self):
+        return sum(size * covered(shape, *np.concatenate(parts, 1))
+                   for shape, size, parts in self.rects.values())
+
+
+def _bound(nbytes, ops):
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def _taps_ops(h):
+    """Integer operations a pixel of an 8-tap unit of height h: the
+    across pass over its window rows, the down pass, the roundings."""
+    return 16 * (1 + 7 / min(h, inter_mc.TILE)) + 16
+
+
+def mc_bound(plan, refs, dims):
+    """(ms, bound_by) of the least time for 6a's work on one frame: its
+    tables read once, the reference pixels its units' windows cover
+    read once (1 byte each), the residual under the units that add it
+    read once (2 bytes a pixel) and the int32 pixels the units write
+    written once, at the HBM rate; against the integer operations of
+    its units (8-tap across and down, rounding, residual, clip; pairs
+    twice and a blend; warps 15 x 8 and 8 x 8 eight-tap sums)."""
+    fp = Footprint()
+    for (p, w, h), f in plan["singles"].items():
+        v = f[:, S_VALID] != 0
+        fp.out(("out", p), dims[p], 4, f, S_X, S_Y, w, h, v)
+        fp.out(("resid", p), dims[p], 2, f, S_X, S_Y, w, h,
+               v & (f[:, S_NORES] == 0))
+        fp.taps(p, refs, f[v], S_SLOT, S_IX, S_IY, S_FH, S_FV, w, h)
+    for (p, w, h), f in plan["pairs"].items():
+        v = f[:, P_VALID] != 0
+        for key, size in ((("out", p), 4), (("resid", p), 2)):
+            fp.out(key, dims[p], size, f, P_X, P_Y, w, h, v)
+        for b in (P_PRED0, P_PRED1):
+            fp.taps(p, refs, f[v], b, b + 1, b + 2, b + 3, b + 11, w, h)
+    for p, f in plan["warps"].items():
+        f = f[f[:, W_VALID] != 0]
+        for key, size in ((("out", p), 4), (("resid", p), 2)):
+            fp.out(key, dims[p], size, f, W_X, W_Y, 8, 8)
+        fp.window(p, refs, f, W_SLOT, f[:, W_IY4] - 7, f[:, W_IX4] - 7,
+                  f[:, W_IY4] + 8, f[:, W_IX4] + 8)
+    nbytes = fp.nbytes() + sum(a.nbytes for a in
+                               inter_mc.mc_tables(plan).values())
+    ops = sum(f.shape[0] * w * h * (_taps_ops(h) + 4)
+              for (_p, w, h), f in plan["singles"].items())
+    ops += sum(f.shape[0] * w * h * (2 * _taps_ops(h) + 10)
+               for (_p, w, h), f in plan["pairs"].items())
+    ops += sum(f.shape[0] * (15 * 8 * 16 + 64 * 20)
+               for f in plan["warps"].values())
+    return _bound(nbytes, ops)
+
+
+def obmc_bound(plan, refs, dims):
+    """(ms, bound_by) of the least time for 6b's three passes, from the
+    plan's own rects: its tables read once, the int32 pixels of the
+    overlay and OBMC block rects read once and written once (8 bytes a
+    pixel), the residual under the OBMC blocks read once (2 bytes a
+    pixel) and the reference pixels of the overlays' windows read once;
+    against the overlays' 8-tap sums and blends and the residual
+    adds."""
+    fp = Footprint()
+    for d in ("obmc_above", "obmc_left"):
+        for (p, w, h), f in plan[d].items():
+            f = f[f[:, S_VALID] != 0]
+            fp.out(("plane", p), dims[p], 8, f, S_X, S_Y, w, h)
+            fp.taps(p, refs, f, S_SLOT, S_IX, S_IY, S_FH, S_FV, w, h)
+    for (p, w, h), f in plan["obmc_resid"].items():
+        fp.out(("plane", p), dims[p], 8, f, 0, 1, w, h)
+        fp.out(("resid", p), dims[p], 2, f, 0, 1, w, h)
+    nbytes = fp.nbytes() + sum(t[k].nbytes for t in inter_mc.obmc_tables(plan)
+                               for k in ("tiles", "units"))
+    ops = sum(f.shape[0] * w * h * (_taps_ops(h) + 8)
+              for d in ("obmc_above", "obmc_left")
+              for (_p, w, h), f in plan[d].items())
+    ops += sum(f.shape[0] * w * h * 3
+               for (_p, w, h), f in plan["obmc_resid"].items())
+    return _bound(nbytes, ops)
+
+
+def inter_timings(caps, prog, dev):
+    """Phase 3: 6a on the captured 1080p and 4K inter frames and 6b on a
+    random 1080p OBMC program (CUDA events), their plain versions, the
+    stages of the 1080p inter stream, and the port's fps beside the
+    native C session's on it."""
+    out = {}
+    for name, c in caps.items():
+        planes = zero_planes(c["dims"], dev)
+        ms = cuda_ms(lambda: inter_mc.mc_launch(planes, c["resid"], c["refs"],
+                                                c["tabs"], 8), 20)
+        bound, by = mc_bound(c["plan"], c["refs"], c["dims"])
+        out[name] = {"ms": ms, "bound_ms": bound, "bound_by": by}
+        print(f"{name} inter frame {c['n']} MC (6a): {ms:.4f} ms, "
+              f"{c['tabs']['tiles'].shape[0]} tiles, bound {bound:.4f} ms "
+              f"({by})")
+    c = caps["1080p"]
+    planes = [b.clone() for b in c["base"]]
+    out["strip_ms"] = cuda_ms(lambda: strip_inter(c, planes), 20)
+    print(f"1080p inter frame {c['n']} strip kernel on its "
+          f"{sum(f.shape[0] for f in c['fields'])} pred units: "
+          f"{out['strip_ms']:.4f} ms")
+    out["mc_plain_ms"] = cuda_ms(lambda: inter_mc.mc_units_plain(
+        zero_planes(c["dims"], dev), c["resid"], c["refs"], c["plan"], 8), 2)
+    print(f"1080p inter frame {c['n']} MC plain version "
+          f"{out['mc_plain_ms']:.3f} ms")
+    resid, refs = mc_inputs(prog, dev)
+    plan = prog["plan"]
+    passes = [{"pass": t["pass"], **convert.from_reference(
+        {k: t[k] for k in ("tiles", "units")}, dev)}
+        for t in inter_mc.obmc_tables(plan)]
+    planes = zero_planes(prog["dims"], dev)
+
+    def obmc_all():
+        for t in passes:
+            inter_mc.obmc_launch(planes, resid, refs, t, 8)
+
+    ms = cuda_ms(obmc_all, 20)
+    plain = cuda_ms(lambda: inter_mc.obmc_plain(planes, resid, refs, plan,
+                                                8), 2)
+    bound, by = obmc_bound(plan, refs, prog["dims"])
+    out["obmc"] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                   "bound_by": by}
+    print(f"random 1080p OBMC program, 6b's {len(passes)} passes: "
+          f"{ms:.4f} ms, plain version {plain:.3f} ms, bound {bound:.4f} ms "
+          f"({by})")
+    pipe.stage_log = []
+    try:
+        decode_hashes(lambda: easyav1_tpu_torch.EasyAV1(INTER_1080,
+                                                        device="cuda"))
+        log = [d for d in pipe.stage_log if "mc" in d]
+    finally:
+        pipe.stage_log = None
+    stages = ("entropy", "plan", "prepare", "upload", "mc", "intra",
+              "lf_cdef", "tail")
+    med = {k: sorted(d[k] for d in log)[len(log) // 2] * 1e3 for k in stages}
+    print(f"1080p inter stream stages (ms, host clock, device synchronised "
+          f"at each stage's end), frame 1: "
+          + ", ".join(f"{k} {log[0][k] * 1e3:.3f}" for k in stages))
+    print(f"  median over its {len(log)} inter frames: "
+          + ", ".join(f"{k} {med[k]:.3f}" for k in stages)
+          + f"; total {sum(med.values()):.3f}")
+    _, port_s = decode_hashes(
+        lambda: easyav1_tpu_torch.EasyAV1(INTER_1080, device="cuda"))
+    _, native_s = decode_hashes(lambda: native_session(INTER_1080))
+    print(f"1080p inter 60 frames: port {60 / port_s:.3f} fps, "
+          f"native C session {60 / native_s:.3f} fps (this host)")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -269,17 +694,37 @@ def main():
     print(f"torch {torch.__version__}, cuda {torch.version.cuda}")
     build()
     err, frames = check_kernel(dev)
+    err = max(err, check_scan_units(dev))
+    err_mc, err_obmc, prog = check_mc(dev)
+    err_frame, err_strip, caps = check_inter_frames(dev)
+    err = max(err, err_strip)
     launches = main_path()
     t = timings(frames, dev)
+    ti = inter_timings(caps, prog, dev)
     print(json.dumps({"kernels": [{
         "name": "intra_strip", "route": "cuda",
         "source": "easyav1_tpu_torch/csrc/intra_strip.cu",
         "replaces": "easyav1_tpu/video/av1/recon/intra_pallas.py:66",
-        "launches": launches, "max_abs_err": err,
+        "launches": launches["intra_strip"], "max_abs_err": err,
         "ms": t["1080p"]["wavefront_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["1080p"]["bound_ms"],
         "bound_by": t["1080p"]["bound_by"],
-        "library_ms": None}]}))
+        "library_ms": None}, {
+        "name": "inter_mc", "route": "cuda",
+        "source": "easyav1_tpu_torch/csrc/inter_mc.cu",
+        "replaces": "easyav1_tpu/video/av1/recon/mc_jax.py:636",
+        "launches": launches["inter_mc"],
+        "max_abs_err": max(err_mc, err_frame),
+        "ms": ti["1080p"]["ms"], "plain_ms": ti["mc_plain_ms"],
+        "bound_ms": ti["1080p"]["bound_ms"],
+        "bound_by": ti["1080p"]["bound_by"], "library_ms": None}, {
+        "name": "obmc", "route": "cuda",
+        "source": "easyav1_tpu_torch/csrc/inter_mc.cu",
+        "replaces": "easyav1_tpu/video/av1/recon/mc_jax.py:681",
+        "launches": launches["obmc"], "max_abs_err": err_obmc,
+        "ms": ti["obmc"]["ms"], "plain_ms": ti["obmc"]["plain_ms"],
+        "bound_ms": ti["obmc"]["bound_ms"],
+        "bound_by": ti["obmc"]["bound_by"], "library_ms": None}]}))
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.split(".")[0] == "easyav1_tpu")
     check(not leaked, f"imported {leaked}")

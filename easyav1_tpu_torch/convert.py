@@ -3,8 +3,8 @@
 A decoder has no weights.  What the JAX package hands its device is of
 two kinds, and both reach the port through `from_reference`:
 
-- constant tables: the Smooth weights and filter-intra taps of
-  `tables_data.npz`, and CDEF's direction, chroma-remap, cost-weight and
+- constant tables: the Smooth weights, filter-intra taps, warp filter
+  and OBMC masks of `tables_data.npz`, and CDEF's direction, chroma-remap, cost-weight and
   partial-sum tables (`reference_tables`), all from the port's copies
   of them (`video/av1/tables.py`, `recon/cdef_torch.py`);
 - the per-frame export: unit fields, int16 residual planes, and the
@@ -43,6 +43,11 @@ def reference_tables() -> Dict[str, np.ndarray]:
     return {
         "sm_weights": d["sm_weights"].astype(np.int32),
         "filter_intra_taps": d["filter_intra_taps"].astype(np.int32),
+        "warped_filter": d["warped_filter"].astype(np.int32),
+        # the OBMC masks of lengths 2, 4, 8, 16, 32, the one of length n
+        # at offset n - 2
+        "obmc_masks": np.concatenate(
+            [d[f"obmc_mask_{n}"] for n in (2, 4, 8, 16, 32)]).astype(np.int32),
         "cdef_directions": cdef_torch.CDEF_DIRECTIONS.astype(np.int64),
         "cdef_uv_dir": cdef_torch.CDEF_UV_DIR.astype(np.int64),
         "cdef_cost_weights": cdef_torch._cost_weights().astype(np.int64),

@@ -8,8 +8,12 @@
 // above/left edges from the plane, fill them by availability, run the
 // 5-tap edge filter and the 2x upsample for the directional classes,
 // predict (DC, V, H, Paeth, the three Smooths, zones 1-3, filter-intra,
-// palette-zero), add 4:2:0 CfL, and write clip(pred + residual) into the
-// plane.  All arithmetic is int32, exact.
+// palette-zero, and the intrabc copy of jax_exec._scan_kernel), add
+// 4:2:0 CfL, blend an interintra unit with the base pixels under its
+// mask (jax_exec.py:865-872), and write clip(pred + residual) into the
+// plane.  The plane starts as the caller's base (an inter frame's MC
+// planes) or zero; pixels outside the units keep it.  All arithmetic is
+// int32, exact.
 //
 // What bounds it.  By bytes, the work is small: at 1080p frame 0 the
 // kernel must read 6.22 MB of int16 residual and 0.37 MB of records and
@@ -39,9 +43,16 @@
 // min(c + 1, C - 1) and, for chroma with CfL, until luma row r has
 // finished SB c; then __syncthreads().  After the SB: __syncthreads(),
 // and thread 0 issues __threadfence() and a release store of the row's
-// count of finished SBs.  L1 is not coherent across SMs, so every pixel
-// is read through L2 (__ldcg); only the inputs, which no launch writes,
-// may be cached.  U and V run one SB behind luma in the same launch.
+// count of finished SBs.  An intrabc source may lie anywhere above its
+// unit, which this order does not cover: intrabc frames take the
+// sequential schedule, one SB a plane.  The scan's units (intrabc,
+// interintra) are compiled into a second instantiation of the kernel,
+// which the host picks for frames that may have them (a sequential
+// schedule, or interintra masks): compiled into every pixel's loop,
+// they cost an intra frame about 9% (tools/torch_strip_variants.py,
+// PERF.md).  L1 is not coherent across SMs,
+// so every pixel is read through L2 (__ldcg); only the inputs, which no
+// launch writes, may be cached.  U and V run one SB behind luma in the same launch.
 // So the kernel is bound by the SB critical path, each step a chain of
 // units at a few microseconds each: far above the roofline bound, which
 // no design that keeps AV1's unit order can reach.
@@ -75,7 +86,7 @@ enum {
 };
 enum {
   K_DC, K_V, K_H, K_Z1, K_Z2, K_Z3, K_SM, K_SMV, K_SMH, K_PAETH,
-  K_CFL, K_ZERO, K_FILT
+  K_CFL, K_ZERO, K_FILT, K_IBC
 };
 
 constexpr int THREADS = 256;
@@ -93,8 +104,10 @@ struct Plane {
   const int16_t* resid;   // [ph, pw]
   int32_t* out;           // [ph, pw]
   const int32_t* spans;   // [rows * cols, 2]: each SB's [begin, end)
+  const int32_t* masks;   // [n, ms, ms] interintra masks, or null
   int ph, pw;
   int sbh, sbw;           // SB extent in this plane
+  int ms;                 // side of a mask
 };
 
 struct Args {
@@ -166,6 +179,8 @@ __device__ __forceinline__ int interp(const int* e, int b, int sh) {
 // the next unit's edge fetch reads these pixels.
 // f: its record (staged or in global memory); res: the SB's staged
 // residual tile with origin (y0, x0) and row pitch P.sbw, or null.
+// kScan: compile in the scan's units (intrabc copy, interintra blend).
+template <bool kScan>
 __device__ __forceinline__ void run_unit(const Args& a, const Plane& P,
                                          const int* f, const int16_t* res,
                                          int y0, int x0, Smem& sm) {
@@ -349,6 +364,9 @@ __device__ __forceinline__ void run_unit(const Args& a, const Plane& P,
   const int oh = min(h, ach - offy), ow = min(w, acw - offx);
   const int ua_sh = 6 - ua, ul_sh = 6 - ul;
   const int dx = f[F_DX], dy = f[F_DY];
+  // intrabc taps (across: F_SA, F_SL; down: F_UA, F_UL); interintra mask
+  const int ib_h0 = f[F_SA], ib_h1 = f[F_SL], ib_v0 = f[F_UA], ib_v1 = f[F_UL];
+  const int mi = f[F_RES];
   for (int k = t; k < cw * chh; k += THREADS) {
     const int i = k / cw, j = k - i * cw;
     int p;
@@ -415,6 +433,24 @@ __device__ __forceinline__ void run_unit(const Args& a, const Plane& P,
       case K_FILT:
         p = sm.w9[(i + 1) * W9 + j + 1];
         break;
+      case K_IBC: {
+        p = 0;
+        if constexpr (kScan) {
+          // whole-pel source (dx + 3, dy + 3) through bilinear taps 3
+          // and 4: a pixel is read only under a live tap, clamped to the
+          // plane
+          const int sr = dy + 3 + i, sc0 = dx + 3 + j;
+          const int r0 = clampi(sr, 0, ph - 1), r1 = clampi(sr + 1, 0, ph - 1);
+          const int c0 = clampi(sc0, 0, pw - 1), c1 = clampi(sc0 + 1, 0, pw - 1);
+          auto across = [&](int r) {
+            return ((ib_h0 ? ib_h0 * __ldcg(buf + r * pw + c0) : 0)
+                    + (ib_h1 ? ib_h1 * __ldcg(buf + r * pw + c1) : 0) + 4) >> 3;
+          };
+          const int m0 = ib_v0 ? across(r0) : 0, m1 = ib_v1 ? across(r1) : 0;
+          p = clampi((ib_v0 * m0 + ib_v1 * m1 + 1024) >> 11, 0, mx);
+        }
+        break;
+      }
       default:  // K_ZERO: palette, prediction folded into the residual
         p = 0;
         break;
@@ -425,6 +461,10 @@ __device__ __forceinline__ void run_unit(const Args& a, const Plane& P,
       p = clampi(p + sc, 0, mx);
     }
     const int o = (y + i) * pw + x + j;
+    if (kScan && mi > 0) {  // interintra: blend with the base (MC)
+      const int m = __ldg(P.masks + ((size_t)(mi - 1) * P.ms + i) * P.ms + j);
+      p = (p * m + __ldcg(buf + o) * (64 - m) + 32) >> 6;
+    }
     const int rv = res ? res[(y + i - y0) * P.sbw + x + j - x0] : P.resid[o];
     buf[o] = clampi(p + rv, 0, mx);
   }
@@ -455,6 +495,7 @@ __device__ __forceinline__ void stage(const Plane& P, int r, int c, int cols,
   __pipeline_commit();
 }
 
+template <bool kScan>
 __global__ void __launch_bounds__(THREADS) intra_wavefront_kernel(Args a) {
   __shared__ Smem sm;
   extern __shared__ __align__(16) unsigned char dyn[];
@@ -493,9 +534,9 @@ __global__ void __launch_bounds__(THREADS) intra_wavefront_kernel(Args a) {
       const int32_t* sp = P.spans + 2 * (r * a.cols + c);
       const int u0 = __ldg(sp), u1 = __ldg(sp + 1);
       for (int u = u0; u < u1; ++u)
-        run_unit(a, P, u - u0 < RECS ? rec + (u - u0) * NF
-                                     : P.fields + (size_t)u * NF,
-                 res, r * P.sbh, c * P.sbw, sm);
+        run_unit<kScan>(a, P, u - u0 < RECS ? rec + (u - u0) * NF
+                                            : P.fields + (size_t)u * NF,
+                        res, r * P.sbh, c * P.sbw, sm);
       __syncthreads();
       if (t == 0) {
         __threadfence();
@@ -509,17 +550,22 @@ __global__ void __launch_bounds__(THREADS) intra_wavefront_kernel(Args a) {
 
 // Launch the wavefront over the np planes of one frame on `stream`:
 // fields[p] [n_p, NF] int32, resid[p] [ph_p, pw_p] int16, out[p]
-// [ph_p, pw_p] int32, spans[p] [rows * cols, 2] int32, the SB extent
-// (sbh[p], sbw[p]) in each plane; counters [1 + np * rows] int32,
-// zeroed.  One CTA per SB row, at most one per SM.  Returns the
-// cudaError_t of the launch.
+// [ph_p, pw_p] int32 (the base, reconstructed in place), spans[p]
+// [rows * cols, 2] int32, the SB extent (sbh[p], sbw[p]) in each plane,
+// masks[p] [n, ms[p], ms[p]] int32 interintra masks or null; counters
+// [1 + np * rows] int32, zeroed; scan: nonzero when the frame may have
+// intrabc or interintra units (the kernel without them is faster).  One
+// CTA per SB row, at most one per SM.  Returns the cudaError_t of the
+// launch.
 extern "C" int intra_strip_frame_launch(int np, const void* const* fields,
                                         const void* const* resid,
                                         void* const* out,
                                         const void* const* spans,
                                         const int* ph, const int* pw,
                                         const int* sbh, const int* sbw,
-                                        int rows, int cols, int cfl,
+                                        const void* const* masks,
+                                        const int* ms,
+                                        int rows, int cols, int cfl, int scan,
                                         void* counters, const void* sm_weights,
                                         const void* fi_taps, int bd,
                                         void* stream) {
@@ -529,8 +575,9 @@ extern "C" int intra_strip_frame_launch(int np, const void* const* fields,
     a.p[p] = {static_cast<const int32_t*>(fields[p]),
               static_cast<const int16_t*>(resid[p]),
               static_cast<int32_t*>(out[p]),
-              static_cast<const int32_t*>(spans[p]), ph[p], pw[p], sbh[p],
-              sbw[p]};
+              static_cast<const int32_t*>(spans[p]),
+              static_cast<const int32_t*>(masks[p]), ph[p], pw[p], sbh[p],
+              sbw[p], ms[p]};
   a.np = np;
   a.rows = rows;
   a.cols = cols;
@@ -543,13 +590,14 @@ extern "C" int intra_strip_frame_launch(int np, const void* const* fields,
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  void (*kernel)(Args) = scan ? intra_wavefront_kernel<true>
+                              : intra_wavefront_kernel<false>;
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(intra_wavefront_kernel,
+    e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              DYN_BYTES);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int grid = np * rows < sms ? np * rows : sms;
-  intra_wavefront_kernel<<<grid, THREADS, DYN_BYTES,
-                           static_cast<cudaStream_t>(stream)>>>(a);
+  kernel<<<grid, THREADS, DYN_BYTES, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,21 +1,25 @@
 """The port's frame pipe: the C entropy decoder's export feeds the device.
 
-The counterpart of the reference's device pipe for intra frames:
-`_pallas_frame`'s intra branch, the LF + CDEF part of
-`_device_pipe_finish`, and the crop-and-cast tail
-(`easyav1_tpu/native/__init__.py:1274-1348`, `:1533-1551`).  The entropy
-decoder, the record export and the host planners are the JAX package's
-own, shared by import.
+The counterpart of the reference's device pipe: `_pallas_frame` for intra
+frames (its intrabc branch included), `_device_frame_inter` for inter
+frames, the LF + CDEF part of `_device_pipe_finish`, and the
+crop-and-cast tail (`easyav1_tpu/native/__init__.py:1274-1460`,
+`:1533-1551`).  The entropy decoder and the record export are the port's
+own copy of the C decoder (`native/`); the host planners are the port's
+copies of the JAX package's (`recon/records.py`, `recon/mc_plan.py`).
 
 A frame the port does not cover is declined: it is reconstructed by the
-shared C recon from the same entropy output, and counted in
-`stats["fallbacks"]`.
+port's C recon from the same entropy output, and counted in
+`stats["fallbacks"]`.  Reference frames are kept as `DevRef`s: the device
+plane that MC reads, and the host plane that the C recon and the
+diffwtd masks read, each made once.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -23,7 +27,9 @@ import torch
 
 from easyav1_tpu_torch import native as nat
 from easyav1_tpu_torch.container.webm import TrackType, WebMDemuxer
+from easyav1_tpu_torch.video.av1.recon.inter_exec import InterRecon
 from easyav1_tpu_torch.video.av1.recon.intra_exec import IntraRecon
+from easyav1_tpu_torch.video.av1.recon.mc_plan import export_inter_plan
 from easyav1_tpu_torch.video.av1.recon.postfilter import postfilter_frame
 
 # frames that reached the pipe, and those of them declined to the C recon
@@ -37,12 +43,73 @@ def _count(fallback: bool) -> None:
         stats["fallbacks"] += int(fallback)
 
 
+# When a list, each frame the pipe covers appends {stage: wall seconds}
+# (the device synchronised at every stage's end): "entropy", "plan",
+# "prepare", "upload", "mc", "intra", "lf_cdef", "tail".  None: off.
+stage_log: Optional[list] = None
+
+
+class _Stages:
+    """The stage clock of one frame (see `stage_log`)."""
+
+    def __init__(self):
+        self.t = {} if stage_log is not None else None
+        self.t0 = time.perf_counter()
+
+    def mark(self, name: str, device=None) -> None:
+        if self.t is None:
+            return
+        if device is not None and device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        self.t[name] = self.t.get(name, 0.0) + t - self.t0
+        self.t0 = t
+
+    def close(self) -> None:
+        if self.t is not None and stage_log is not None:
+            stage_log.append(self.t)
+
+
+class DevRef:
+    """One plane of a reference frame (the counterpart of the reference's
+    `_DevRef`, `native/__init__.py:1249-1271`): the uint8 [lh, lw] plane
+    on the device that MC reads, and the uint16 host plane that the C
+    recon and the diffwtd masks read.  A plane the device made keeps its
+    downloaded display copy, from which the host plane is made once; a
+    plane the C recon made is uploaded once, at its first use by MC.
+    The pipe covers 8-bit frames only, so uint8 holds every sample."""
+
+    __slots__ = ("_dev", "_u8", "_host", "lw", "lh")
+
+    def __init__(self, lw: int, lh: int, dev: Optional[torch.Tensor] = None,
+                 u8: Optional[np.ndarray] = None,
+                 host: Optional[np.ndarray] = None):
+        self.lw, self.lh = lw, lh
+        self._dev, self._u8, self._host = dev, u8, host
+
+    def host(self) -> np.ndarray:
+        """The host plane, uint16, C-contiguous, at least lh x lw."""
+        if self._host is None:
+            self._host = self._u8.astype(np.uint16)
+        return self._host
+
+    def tensor(self, device: torch.device) -> torch.Tensor:
+        """The uint8 [lh, lw] plane on `device`."""
+        if self._dev is None or self._dev.device != device:
+            h = self.host()[:self.lh, :self.lw]
+            if h.max(initial=0) > 255:
+                raise ValueError("device references hold 8-bit samples")
+            self._dev = torch.from_numpy(h.astype(np.uint8)).to(device)
+        return self._dev
+
+
 def covers(seq, hdr) -> bool:
-    """The slice: 8-bit intra frames without intrabc, superres, loop
-    restoration or film grain (non-4:2:0 CfL is declined by IntraRecon)."""
+    """The slice: 8-bit frames, intra (intrabc too) or inter, without
+    superres, loop restoration or film grain.  Non-4:2:0 CfL is declined
+    by the recons; intrabc blocks inside inter frames and scaled
+    references by the MC planner."""
     fg = getattr(hdr, "film_grain", None)
-    return (hdr.frame_is_intra and seq.color.bitdepth == 8
-            and not getattr(hdr, "allow_intrabc", False)
+    return (seq.color.bitdepth == 8
             and not getattr(hdr, "use_superres", False)
             and not getattr(getattr(hdr, "lr", None), "uses_lr", False)
             and not (fg is not None and fg.apply_grain))
@@ -74,10 +141,11 @@ def intra_inputs(lib, seq, hdr, out, bufs, rp, device) -> Optional[dict]:
                     128 if seq.use_128x128_superblock else 64, device)
     prep = ir.prepare(units, bufs["txs"][:out.n_txs],
                       bufs["coeffs"][:out.coeffs_used],
-                      literals=nat._export_literals(lib, rp, out))
+                      literals=nat._export_literals(lib, rp, out),
+                      intrabc=bool(getattr(hdr, "allow_intrabc", False)))
     if prep is None:
         return None
-    fields, resid, schedule = ir.upload(*prep)
+    fields, resid, _masks, schedule = ir.upload(*prep)
     return {"recon": ir, "fields": fields, "resid": resid,
             "schedule": schedule,
             "maps": (nat._grids_exporter(lib, rp, out),
@@ -85,24 +153,85 @@ def intra_inputs(lib, seq, hdr, out, bufs, rp, device) -> Optional[dict]:
             "units": units.shape[0]}
 
 
-def _intra_frame(lib, seq, hdr, out, bufs, rp, device):
-    """Device recon + LF + CDEF of an intra frame.  Returns (display
-    planes uint8, ref triples of mi-aligned uint16 planes) on the host,
-    or None when the executor declines the frame."""
-    inp = intra_inputs(lib, seq, hdr, out, bufs, rp, device)
-    if inp is None:
-        return None
-    dev = inp["recon"].launch(inp["fields"], inp["resid"], inp["schedule"])
-    dev = postfilter_frame(dev, hdr, seq, *inp["maps"])
+def _tail(dev, seq, hdr):
+    """Crop and cast: (display planes uint8, ref triples of DevRef) from
+    the post-filtered mi-aligned planes."""
     ssx, ssy = seq.color.subsampling_x, seq.color.subsampling_y
     w, h = hdr.upscaled_width, hdr.frame_height
     cw, ch = (w + ssx) >> ssx, (h + ssy) >> ssy
     planes, refs = [], []
     for d, (pw_, ph_) in zip(dev, ((w, h), (cw, ch), (cw, ch))):
-        planes.append(d[:ph_, :pw_].to(torch.uint8).cpu().numpy())
-        refs.append((d.to(torch.int16).cpu().numpy().view(np.uint16),
-                     pw_, ph_))
+        u8 = d[:ph_, :pw_].to(torch.uint8).contiguous()
+        planes.append(u8.cpu().numpy())
+        refs.append((DevRef(pw_, ph_, dev=u8, u8=planes[-1]), pw_, ph_))
     return planes, refs
+
+
+def _intra_frame(lib, seq, hdr, out, bufs, rp, device, clock):
+    """Device recon + LF + CDEF of an intra frame.  Returns (display
+    planes uint8, ref triples of DevRef), or None when the executor
+    declines the frame."""
+    inp = intra_inputs(lib, seq, hdr, out, bufs, rp, device)
+    if inp is None:
+        return None
+    clock.mark("upload", device)
+    dev = inp["recon"].launch(inp["fields"], inp["resid"], inp["schedule"])
+    clock.mark("intra", device)
+    dev = postfilter_frame(dev, hdr, seq, *inp["maps"])
+    clock.mark("lf_cdef", device)
+    return _tail(dev, seq, hdr)
+
+
+class _HostLuma:
+    """The reference slots' host luma planes, made on demand: all that
+    `export_inter_plan` reads of `ref_planes` (diffwtd masks)."""
+
+    def __init__(self, refs):
+        self.refs = refs
+
+    def __getitem__(self, slot):
+        return [self.refs[slot][0][0].host()]
+
+
+def _inter_frame(lib, seq, hdr, out, bufs, rp, refs, device, clock):
+    """Device MC + OBMC + intra units + LF + CDEF of an inter frame, the
+    counterpart of `_device_frame_inter`.  refs: per-slot triples of
+    (DevRef, lw, lh).  Returns as `_intra_frame`, or None when the
+    planner or the recon declines the frame."""
+    ref_dims = [None if refs[s] is None else (refs[s][0][1], refs[s][0][2])
+                for s in range(8)]
+    plan = export_inter_plan(seq, hdr, bufs["blocks"][:out.n_blocks],
+                             bufs["ref0"], bufs["mvs"], bufs["interp"],
+                             ref_dims, ref_planes=_HostLuma(refs),
+                             bsize_g=bufs["grids"]["bsize"])
+    clock.mark("plan")
+    if plan is None:
+        return None
+    units = export_units(lib, hdr, out, rp)
+    if units is None:
+        return None
+    ir = InterRecon(hdr.mi_rows, hdr.mi_cols, seq.color.subsampling_x,
+                    seq.color.subsampling_y, seq.color.bitdepth,
+                    seq.color.num_planes,
+                    128 if seq.use_128x128_superblock else 64, device)
+    prep = ir.prepare(units, bufs["txs"][:out.n_txs],
+                      bufs["coeffs"][:out.coeffs_used],
+                      literals=nat._export_literals(lib, rp, out))
+    clock.mark("prepare")
+    if prep is None:
+        return None
+    fields, resid, masks, schedule = ir.upload(*prep)
+    dev_refs = [[refs[s][p][0].tensor(device) for s in plan["slots"]]
+                for p in range(seq.color.num_planes)]
+    clock.mark("upload", device)
+    dev = ir.motion(resid, plan, dev_refs)
+    clock.mark("mc", device)
+    dev = ir.intra(dev, fields, resid, masks, schedule)
+    clock.mark("intra", device)
+    dev = postfilter_frame(dev, hdr, seq, nat._grids_exporter(lib, rp, out),
+                           bufs["grids"]["skip"], bufs["cdef"])
+    clock.mark("lf_cdef", device)
+    return _tail(dev, seq, hdr)
 
 
 def first_frame_inputs(path: str, device: torch.device) -> Optional[dict]:
@@ -145,7 +274,8 @@ def first_frame_inputs(path: str, device: torch.device) -> Optional[dict]:
 
 def _c_recon(lib, seq, hdr, out, fp_rc, rp, rfl):
     """The 16-bit C recon + postfilters on the entropy output.
-    Returns (display planes, ref triples) or None if the recon fails."""
+    Returns (display planes, ref triples of DevRef) or None if the recon
+    fails."""
     ssx, ssy = seq.color.subsampling_x, seq.color.subsampling_y
     aw, ah = hdr.mi_cols * 4, hdr.mi_rows * 4
     # superres frames land at the upscaled width
@@ -166,8 +296,25 @@ def _c_recon(lib, seq, hdr, out, fp_rc, rp, rfl):
     for p, (pw_, ph_) in zip(pl[:seq.color.num_planes],
                              ((w, h), (cw, ch), (cw, ch))):
         planes.append(p[:ph_, :pw_].astype(dt))
-        refs.append((p, pw_, ph_))
+        refs.append((DevRef(pw_, ph_, host=p), pw_, ph_))
     return planes, refs
+
+
+def _c_refs(refs):
+    """The C recon's reference list: the host plane of every slot's
+    planes (made here, once, for a plane the device made), and the
+    arrays it points into, to keep alive through the call."""
+    rfl = nat._RefPlanes()
+    keep = []
+    for slot in range(8 if refs is not None else 0):
+        for pi, (ref, lw, lh) in enumerate(refs[slot] or ()):
+            arr = ref.host()
+            keep.append(arr)
+            rfl.plane[slot][pi] = nat._vp(arr).value
+            rfl.w[slot][pi] = lw
+            rfl.h[slot][pi] = lh
+            rfl.stride[slot][pi] = arr.shape[1]
+    return rfl, keep
 
 
 def decode_and_recon(seq, hdr, tiles: List[bytes], device: torch.device,
@@ -176,38 +323,39 @@ def decode_and_recon(seq, hdr, tiles: List[bytes], device: torch.device,
     """Entropy decode in C, then the port's device recon (or the C recon
     for a declined frame).  Returns (display planes, cdf blob or None,
     mv grids or None, ref triples), or None when the C entropy decoder
-    declines the frame.  refs: per-slot triples of (uint16 mi-aligned
-    plane, logical w, logical h)."""
+    declines the frame.  refs: per-slot triples of (DevRef, logical w,
+    logical h)."""
     lib = nat._load()
-    rfl = nat._RefPlanes()
-    keep_refs = []
-    if not hdr.frame_is_intra:
-        if refs is None or any(refs[s] is None
-                               for s in set(hdr.ref_frame_idx)):
-            return None
-        for slot in range(8):
-            for pi, (arr, lw, lh) in enumerate(refs[slot] or ()):
-                arr = np.ascontiguousarray(arr, np.uint16)
-                keep_refs.append(arr)
-                rfl.plane[slot][pi] = nat._vp(arr).value
-                rfl.w[slot][pi] = lw
-                rfl.h[slot][pi] = lh
-                rfl.stride[slot][pi] = arr.shape[1]
+    clock = _Stages()
+    if not hdr.frame_is_intra and (
+            refs is None or any(refs[s] is None
+                                for s in set(hdr.ref_frame_idx))):
+        return None
     res = nat._run_tiles(lib, seq, hdr, tiles, cdf_in=cdf_in,
                          want_cdf=want_cdf, tpl=tpl, threads=threads)
     if res is None:
         return None
     out, bufs, blob, (fp_rc, keep_fp) = res
+    clock.mark("entropy")
     rp = nat._build_rp(seq, hdr)
     mv_grids = None
     if not hdr.frame_is_intra:
         mv_grids = (bufs["ref0"], bufs["ref1"], bufs["mvs"])
-    got = (_intra_frame(lib, seq, hdr, out, bufs, rp, device)
-           if covers(seq, hdr) else None)
+    got = None
+    if covers(seq, hdr):
+        got = (_intra_frame(lib, seq, hdr, out, bufs, rp, device, clock)
+               if hdr.frame_is_intra else
+               _inter_frame(lib, seq, hdr, out, bufs, rp, refs, device,
+                            clock))
+        if got is not None:
+            clock.mark("tail")
+            clock.close()
     _count(fallback=got is None)
     if got is None:
+        rfl, keep_refs = _c_refs(None if hdr.frame_is_intra else refs)
         got = _c_recon(lib, seq, hdr, out, fp_rc, rp, rfl)
-    del keep_fp, keep_refs
+        del keep_refs
+    del keep_fp
     if got is None:
         return None
     planes, ref_triples = got

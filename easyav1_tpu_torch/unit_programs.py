@@ -126,3 +126,218 @@ def program_frame(prog: Dict) -> Dict:
         units = np.concatenate([np.array(luma, np.int32), units])
         resid[0] = prog["luma"].astype(np.int16)
     return {"units": units, "resid": resid}
+
+
+# ------------------------------------------------------- intrabc, interintra
+
+def random_ibc_program(seed: int, mi_rows: int = MI_ROWS,
+                       mi_cols: int = MI_COLS, n_rand: int = 44,
+                       n_ibc: int = 24) -> Dict:
+    """`random_program` with intrabc units (bridge class 11) mixed into
+    the second half of its decode order: whole-pel copies of w x h in
+    1..32 (not only powers of two, as the plane edge clips them) from a
+    source strictly above the unit, through the bilinear taps (128, 0)
+    or (64, 64) across and down, as the C exporter emits them.  The keys
+    of `random_program`."""
+    prog = random_program(seed, mi_rows, mi_cols, n_rand)
+    rng = np.random.default_rng(seed + 7919)
+    ph, pw = prog["dims"][prog["plane"]]
+    units = prog["units"].tolist()
+    taps = ((128, 0), (64, 64))
+    for _ in range(n_ibc):
+        w = int(rng.choice([4, 8, 12, 16, 20, 32]))
+        h = int(rng.choice([v for v in (4, 8, 12, 16, 28, 32)
+                            if 2 * v + 4 <= ph]))
+        x = int(rng.integers(0, (pw - w) // 4 + 1)) * 4
+        y = int(rng.integers((h + 4) // 4, (ph - h) // 4 + 1)) * 4
+        sx = int(rng.integers(0, pw - w - 1))
+        sy = int(rng.integers(0, y - h))
+        (h0, h1), (v0, v1) = (taps[int(rng.integers(0, 2))]
+                              for _ in range(2))
+        u = [prog["plane"], x, y, w, h, 11, sx] + [0] * 17
+        u[11:16] = [h0, h1, v0, v1, sy]
+        units.insert(int(rng.integers(len(units) // 2, len(units) + 1)), u)
+    return prog | {"units": np.array(units, np.int32)}
+
+
+# interintra modes' intra classes (DC, V, H, Smooth)
+_II_CLASSES = (0, 1, 2, 4)
+
+
+def random_interintra_program(seed: int, mi_rows: int = MI_ROWS,
+                              mi_cols: int = MI_COLS,
+                              n_rand: int = 44) -> Dict:
+    """`random_program` whose DC, V, H and Smooth units of 8..32 pixels
+    (chroma: of 8..32 luma pixels) carry an interintra blend pack in
+    bridge column 23 (mode 1-4, wedge index and flag, luma block size;
+    mc_plan's layout), plus "base": the int32 planes of the MC
+    prediction that the pack blends with."""
+    from easyav1_tpu_torch.video.av1 import constants as C
+    from easyav1_tpu_torch.video.av1.wedge import wedge_allowed
+
+    prog = random_program(seed, mi_rows, mi_cols, n_rand)
+    rng = np.random.default_rng(seed + 104729)
+    sub = 1 if prog["plane"] else 0
+    units = prog["units"].copy()
+    for u in units:
+        lw, lh = int(u[3]) << sub, int(u[4]) << sub
+        bs = [b for b in range(22) if C.BLOCK_W4[b] * 4 == lw
+              and C.BLOCK_H4[b] * 4 == lh]
+        if int(u[5]) not in _II_CLASSES or not 8 <= min(lw, lh) \
+                or max(lw, lh) > 32 or not bs or rng.random() < 0.3:
+            continue
+        wedge = int(wedge_allowed(bs[0]) and rng.random() < 0.5)
+        u[23] = (int(rng.integers(1, 5)) | int(rng.integers(0, 16)) << 4
+                 | wedge << 12 | bs[0] << 16)
+    base = [rng.integers(0, 256, d).astype(np.int32) for d in prog["dims"]]
+    return prog | {"units": units, "base": base}
+
+
+# ----------------------------------------------------------- MC programs
+
+def _blocks(ph: int, pw: int, sb: int, rng) -> List[tuple]:
+    """(x, y, w, h) of a random partition of the SB grid over a plane:
+    each SB split recursively (quad, halves, quarters) down to 4 pixels,
+    blocks of every size from 4 to sb; the last SBs overhang the
+    plane."""
+    out = []
+
+    def split(x, y, w, h):
+        if x >= pw or y >= ph:
+            return
+        kinds = [k for k, ok in (("quad", min(w, h) >= 8),
+                                 ("horz", h >= 8 and w <= 2 * h),
+                                 ("vert", w >= 8 and h <= 2 * w),
+                                 ("h4", h >= 16 and w == h),
+                                 ("v4", w >= 16 and w == h)) if ok]
+        if not kinds or rng.random() < 0.4:
+            out.append((x, y, w, h))
+            return
+        k = kinds[int(rng.integers(0, len(kinds)))]
+        if k == "quad":
+            for dy in (0, h // 2):
+                for dx in (0, w // 2):
+                    split(x + dx, y + dy, w // 2, h // 2)
+        elif k in ("horz", "h4"):
+            n = 2 if k == "horz" else 4
+            for i in range(n):
+                split(x, y + i * h // n, w, h // n)
+        else:
+            n = 2 if k == "vert" else 4
+            for i in range(n):
+                split(x + i * w // n, y, w // n, h)
+
+    for y in range(0, ph, sb):
+        for x in range(0, pw, sb):
+            split(x, y, sb, sb)
+    return out
+
+
+def random_mc_program(seed: int, width: int = 100, height: int = 76,
+                      n_slots: int = 3) -> Dict:
+    """A random 4:2:0 frame of MC units of every kind in
+    `mc_plan.export_inter_plan`'s layout, over a random partition of each
+    plane into blocks of 4 to 128 pixels: single-reference units of the
+    8 filter classes with subpel phases, a tenth of them without the
+    residual (interintra); compound pairs with average or distance
+    weights, or with the wedge masks of their size or diffwtd masks; 8x8 warp units with valid shears; OBMC
+    blocks (bare prediction, above and left overlays with masks of 2 to
+    32 lines, the deferred residual rects).  Positions reach well past
+    the frame edges, so the windows clamp there.  Returns {"plan",
+    "refs": per plane the n_slots uint8 logical reference planes,
+    "resid": int16 per plane, "dims": the mi-aligned plane dims}."""
+    from easyav1_tpu_torch.video.av1 import constants as C
+    from easyav1_tpu_torch.video.av1.recon import mc_plan as M
+    from easyav1_tpu_torch.video.av1.wedge import (diffwtd_mask,
+                                                   wedge_allowed, wedge_mask)
+
+    rng = np.random.default_rng(seed)
+    bank = M._filter_bank()
+    aw, ah = -(-width // 4) * 4, -(-height // 4) * 4
+    dims = [(ah, aw), (ah >> 1, aw >> 1), (ah >> 1, aw >> 1)]
+    logical = [(height, width)] + [((height + 1) >> 1,
+                                    (width + 1) >> 1)] * 2
+    plan = {"slots": list(range(n_slots)), "singles": {}, "pairs": {},
+            "pair_masks": {}, "obmc_above": {}, "obmc_left": {},
+            "obmc_resid": {}, "warps": {}}
+
+    def add(d, key, row):
+        d.setdefault(key, []).append(row)
+
+    def pred(x, y):
+        """slot, ix, iy, fh[8], fv[8] of one prediction at (x, y)."""
+        reach = 200 if rng.random() < 0.15 else 24
+        ix, iy = (int(v + rng.integers(-reach, reach + 1)) for v in (x, y))
+        fh = bank[int(rng.integers(0, 8)), int(rng.integers(0, 16))]
+        fv = bank[int(rng.integers(0, 8)), int(rng.integers(0, 16))]
+        return [int(rng.integers(0, n_slots)), ix, iy, *fh, *fv]
+
+    def single(x, y, nores):
+        s = pred(x, y)
+        return [x, y, s[0], s[1], s[2], 1, *s[3:], nores]
+
+    def mask(w, h):
+        """A wedge mask where the size has a codebook, else (and half
+        the time) a diffwtd mask of two random predictions."""
+        bs = [b for b in range(22) if C.BLOCK_W4[b] * 4 == w
+              and C.BLOCK_H4[b] * 4 == h and wedge_allowed(b)]
+        if bs and rng.random() < 0.5:
+            return wedge_mask(bs[0], int(rng.integers(0, 16)),
+                              int(rng.integers(0, 2))).astype(np.int32)
+        p0, p1 = (rng.integers(0, 256 << 4, (h, w)) for _ in range(2))
+        return diffwtd_mask(p0, p1, int(rng.integers(0, 2)),
+                            8).astype(np.int32)
+
+    for p, (ph, pw) in enumerate(dims):
+        for x, y, w, h in _blocks(ph, pw, 128 >> (p > 0), rng):
+            kind = rng.random()
+            if kind < 0.5:
+                add(plan["singles"], (p, w, h),
+                    single(x, y, int(rng.random() < 0.1)))
+            elif kind < 0.7:
+                mode, midx = int(rng.random() < 0.5), 0
+                w0 = int(rng.choice([8, 9, 7, 11, 5, 12, 4, 13, 3]))
+                if mode:
+                    stack = plan["pair_masks"].setdefault(
+                        (p, w, h), [np.zeros((h, w), np.int32)])
+                    midx = len(stack)
+                    stack.append(mask(w, h))
+                add(plan["pairs"], (p, w, h),
+                    [x, y, 1, *pred(x, y), *pred(x, y), w0, 16 - w0, mode,
+                     midx])
+            elif kind < 0.8 and min(w, h) >= 8:
+                for sy in range(0, h, 8):
+                    for sx in range(0, w, 8):
+                        al, be, ga, de = (int(v) * 64 for v in
+                                          rng.integers(-80, 81, 4))
+                        be = be * 4 // 7
+                        fx, fy = (int(v) for v in rng.integers(0, 1 << 16, 2))
+                        ox, oy = (int(v) for v in rng.integers(-40, 41, 2))
+                        add(plan["warps"], p, [
+                            x + sx, y + sy, 1, int(rng.integers(0, n_slots)),
+                            x + sx + ox, y + sy + oy,
+                            (fx - 4 * al - 4 * be) & ~63,
+                            (fy - 4 * ga - 4 * de) & ~63, al, be, ga, de])
+            else:
+                add(plan["singles"], (p, w, h), single(x, y, 1))
+                ov = min(h, 64) // 2
+                for k in range(0, w, max(w // 2, 2)):
+                    sw = min(max(w // 2, 2), w - k)
+                    add(plan["obmc_above"], (p, sw, ov),
+                        single(x + k, y, 0))
+                ow = min(w, 64) // 2
+                for k in range(0, h, max(h // 2, 2)):
+                    sh = min(max(h // 2, 2), h - k)
+                    add(plan["obmc_left"], (p, ow, sh),
+                        single(x, y + k, 0))
+                add(plan["obmc_resid"], (p, w, h), [x, y])
+    for name in ("singles", "pairs", "obmc_above", "obmc_left", "warps",
+                 "obmc_resid"):
+        plan[name] = {k: np.asarray(v, np.int32)
+                      for k, v in plan[name].items()}
+    plan["pair_masks"] = {k: np.stack(v)
+                          for k, v in plan["pair_masks"].items()}
+    refs = [[rng.integers(0, 256, lg).astype(np.uint8)
+             for _ in range(n_slots)] for lg in logical]
+    resid = [rng.integers(-64, 65, d).astype(np.int16) for d in dims]
+    return {"plan": plan, "refs": refs, "resid": resid, "dims": dims}

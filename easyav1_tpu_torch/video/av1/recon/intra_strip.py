@@ -2,12 +2,19 @@
 
 Replays a frame's pred-unit records, as `records.preprocess_units(
 units, dims)` lays them out, with `exec_ref.UnitExecutor._unit`
-semantics, into int32 planes of the mi-aligned dims.
+semantics, into int32 planes of the mi-aligned dims.  It also carries
+what the reference's sequential scan (`jax_exec._scan_kernel`) has over
+the strip kernel: a base plane to start from (an inter frame's MC
+planes) whose pixels outside the units stay as they are, the intrabc
+copy (`K_IBC`) from the partly reconstructed plane, and the interintra
+blend of a unit's prediction with the base pixels under a mask from a
+per-plane stack (the unit's `F_RES`, 1-based; 0 for none).
 
 - `strip_exec_plain`: the plain torch version of one plane, one unit at
   a time in decode order: the specification.
 - `sb_schedule`, `sequential_schedule`: the host schedule, each plane's
-  units per superblock (SB) as spans of its records.
+  units per superblock (SB) as spans of its records.  Intrabc frames
+  take the sequential one: a copy's source may lie anywhere above.
 - `strip_exec_frame`: the wrapper.  For CPU tensors it runs the plain
   version on each plane, luma first; for CUDA tensors it launches
   `csrc/intra_strip.cu` once for all planes, an SB wavefront, or raises.
@@ -24,9 +31,9 @@ import torch
 from easyav1_tpu_torch import convert
 from easyav1_tpu_torch.video.av1.recon.records import (
     F_ACH, F_ACW, F_ACX, F_ACY, F_ALPHA, F_ANGLE, F_CF, F_CLS, F_DX, F_DY,
-    F_H, F_HA, F_HL, F_NA, F_NL, F_NPXA, F_NPXL, F_SA, F_SL, F_UA, F_UL,
-    F_W, F_X, F_Y, K_CFL, K_DC, K_FILT, K_H, K_PAETH, K_SM, K_SMH, K_SMV,
-    K_V, K_Z1, K_Z2, K_Z3, NF)
+    F_H, F_HA, F_HL, F_NA, F_NL, F_NPXA, F_NPXL, F_RES, F_SA, F_SL,
+    F_UA, F_UL, F_W, F_X, F_Y, K_CFL, K_DC, K_FILT, K_H, K_IBC, K_PAETH,
+    K_SM, K_SMH, K_SMV, K_V, K_Z1, K_Z2, K_Z3, NF)
 
 OFF = 2                       # edge slot of the first pixel (exec_ref.OFF)
 _EDGE_KERNELS = ((0, 4, 8, 4, 0), (0, 5, 6, 5, 0), (2, 4, 4, 4, 2))
@@ -34,9 +41,11 @@ _SIZES = (4, 8, 16, 32, 64)
 
 
 def check_units(fields: np.ndarray, dims: Tuple[int, int],
-                has_luma: bool) -> None:
+                has_luma: bool, n_masks: int = 0, mask_size: int = 0) -> None:
     """Raise ValueError on records the executor cannot take (host-side,
-    before upload: the kernel indexes the plane with these numbers)."""
+    before upload: the kernel indexes the plane with these numbers).
+    n_masks, mask_size: the plane's interintra mask stack [n_masks,
+    mask_size, mask_size] that F_RES indexes."""
     ph, pw = dims
     f = fields
     if f.ndim != 2 or f.shape[1] != NF:
@@ -44,9 +53,17 @@ def check_units(fields: np.ndarray, dims: Tuple[int, int],
     if f.shape[0] == 0:
         return
     x, y, w, h, cls = (f[:, k] for k in (F_X, F_Y, F_W, F_H, F_CLS))
-    bad = ~np.isin(w, _SIZES) | ~np.isin(h, _SIZES)
+    ibc = cls == K_IBC
+    # intrabc copies come clipped to the plane, in sizes of 1 to 64
+    bad = np.where(ibc, (w < 1) | (h < 1) | (w > 64) | (h > 64),
+                   ~np.isin(w, _SIZES) | ~np.isin(h, _SIZES))
     bad |= (x < 0) | (y < 0) | (x >= pw) | (y >= ph)
-    bad |= (cls < K_DC) | (cls > K_FILT)
+    bad |= (cls < K_DC) | (cls > K_IBC)
+    sx, sy = f[:, F_DX] + 3, f[:, F_DY] + 3
+    bad |= ibc & ((sx < 0) | (sy < 0) | (sx >= pw) | (sy >= ph))
+    mi = f[:, F_RES]
+    bad |= (mi < 0) | (mi > n_masks)
+    bad |= (mi > 0) & ((w > mask_size) | (h > mask_size))
     bad |= (f[:, F_HA] != 0) & (y < 1)
     bad |= (f[:, F_HL] != 0) & (x < 1)
     bad |= (cls == K_FILT) & ((w > 32) | (h > 32))
@@ -83,7 +100,10 @@ def sb_schedule(fields: Sequence[np.ndarray], dims, sb: int) -> Schedule:
     pixel; sb is 64 or 128 luma pixels.  Raises ValueError unless each
     SB's units are one contiguous run of the plane's records (tile
     columns split SB rows, so a row's SBs need not be contiguous with
-    each other) and each unit lies inside its SB."""
+    each other) and each unit lies inside its SB, and on intrabc units,
+    whose source the wavefront does not order."""
+    if any(np.any(f[:, F_CLS] == K_IBC) for f in fields):
+        raise ValueError("intrabc units need the sequential schedule")
     grid = sb_grid(dims, sb, sb)
     rows, cols = grid[0][:2]
     spans = np.zeros((len(fields), rows * cols, 2), np.int32)
@@ -187,7 +207,24 @@ def _filter_intra(taps, above, left, corner, w, h, mx):
     return w9[1:, 1:]
 
 
-def _unit(buf, res, luma, u, tabs, bd):
+def _ibc(buf, u, w, h, mx):
+    """The intrabc copy (jax_exec._scan_kernel p_ibc): a whole-pel
+    source at (F_DX + 3, F_DY + 3) through the bilinear taps 3 and 4 of
+    the 8-tap window, F_SA/F_SL across and F_UA/F_UL down.  Reads are
+    clamped to the plane; a zero tap's pixel weighs nothing."""
+    ph, pw = buf.shape
+    dev = buf.device
+    rows = torch.clamp(u[F_DY] + 3 + torch.arange(h + 1, device=dev), 0,
+                       ph - 1)
+    cols = torch.clamp(u[F_DX] + 3 + torch.arange(w + 1, device=dev), 0,
+                       pw - 1)
+    win = buf[rows[:, None], cols[None, :]]
+    mid = (u[F_SA] * win[:, :w] + u[F_SL] * win[:, 1:] + 4) >> 3
+    return torch.clamp((u[F_UA] * mid[:h] + u[F_UL] * mid[1:] + 1024) >> 11,
+                       0, mx)
+
+
+def _unit(buf, res, luma, u, tabs, bd, masks=None):
     ph, pw = buf.shape
     x, y, w, h, cls, ang = (u[k] for k in (F_X, F_Y, F_W, F_H, F_CLS,
                                            F_ANGLE))
@@ -282,6 +319,8 @@ def _unit(buf, res, luma, u, tabs, bd):
     elif cls == K_FILT:
         taps = tabs["filter_intra_taps"][min(max(ang, 0), 4)]
         pred = _filter_intra(taps, above, left, corner, w, h, mx)
+    elif cls == K_IBC:
+        pred = _ibc(buf, u, w, h, mx)
     else:                       # K_ZERO: palette folded into the residual
         pred = torch.zeros((h, w), dtype=buf.dtype, device=dev)
 
@@ -301,35 +340,48 @@ def _unit(buf, res, luma, u, tabs, bd):
         pred[:oh, :ow] = torch.clamp(pred[:oh, :ow] + scaled, 0, mx)
 
     cw, chh = min(w, pw - x), min(h, ph - y)
+    pred = pred[:chh, :cw]
+    if u[F_RES] > 0:            # interintra: blend with the base pixels
+        mk = masks[u[F_RES] - 1, :chh, :cw]
+        pred = (pred * mk + buf[y:y + chh, x:x + cw] * (64 - mk) + 32) >> 6
     buf[y:y + chh, x:x + cw] = torch.clamp(
-        pred[:chh, :cw] + res[y:y + chh, x:x + cw], 0, mx)
+        pred + res[y:y + chh, x:x + cw], 0, mx)
 
 
 def strip_exec_plain(fields: torch.Tensor, resid: torch.Tensor,
                      dims: Tuple[int, int], bd: int,
-                     luma: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     luma: Optional[torch.Tensor] = None,
+                     base: Optional[torch.Tensor] = None,
+                     masks: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain torch executor for one plane (any device): fields [n, NF]
-    int32, resid [ph, pw] int16, luma [2ph, 2pw] int32 for 4:2:0 CfL.
-    Returns the reconstructed [ph, pw] int32 plane."""
+    int32, resid [ph, pw] int16, luma [2ph, 2pw] int32 for 4:2:0 CfL,
+    base [ph, pw] int32 to reconstruct in place (else a zero plane),
+    masks [n, s, s] int32, the interintra stack.  Returns the
+    reconstructed [ph, pw] int32 plane."""
     tabs = convert.tables(resid.device)
-    buf = torch.zeros(dims, dtype=torch.int32, device=resid.device)
+    buf = base if base is not None else torch.zeros(
+        dims, dtype=torch.int32, device=resid.device)
     res = resid.to(torch.int32)
     for u in fields.tolist():
-        _unit(buf, res, luma, u, tabs, bd)
+        _unit(buf, res, luma, u, tabs, bd, masks)
     return buf
 
 
 # -------------------------------------------------------------- wrapper
+
+# the C signature of intra_strip_frame_launch
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+ARGTYPES = [_CI, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CI,
+            _CI, _CI, _VP, _VP, _VP, _CI, _VP]
+
 
 def _lib():
     from easyav1_tpu_torch import _build
     lib = _build.load("intra_strip")
     fn = lib.intra_strip_frame_launch
     if fn.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.restype = ci
-        fn.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp,
-                       vp, vp, ci, vp]
+        fn.restype = ctypes.c_int
+        fn.argtypes = ARGTYPES
     return lib
 
 
@@ -350,28 +402,37 @@ def _is_420(dims) -> bool:
 
 
 def strip_exec_frame_plain(fields: Sequence[torch.Tensor],
-                           resid: Sequence[torch.Tensor], dims,
-                           bd: int) -> List[torch.Tensor]:
+                           resid: Sequence[torch.Tensor], dims, bd: int,
+                           base: Optional[Sequence[torch.Tensor]] = None,
+                           masks: Optional[Sequence] = None
+                           ) -> List[torch.Tensor]:
     """The plain version of `strip_exec_frame` (any device): each plane
     in decode order, luma first, chroma CfL reading the finished luma
     when the frame is 4:2:0."""
     outs = []
-    for f, r, d in zip(fields, resid, dims):
+    for p, (f, r, d) in enumerate(zip(fields, resid, dims)):
         outs.append(strip_exec_plain(
-            f, r, d, bd, outs[0] if outs and _is_420(dims) else None))
+            f, r, d, bd, outs[0] if outs and _is_420(dims) else None,
+            base[p] if base is not None else None,
+            masks[p] if masks is not None else None))
     return outs
 
 
 def strip_exec_frame(fields: Sequence[torch.Tensor],
                      resid: Sequence[torch.Tensor], dims, bd: int,
-                     schedule: Tuple[int, int, torch.Tensor]
+                     schedule: Tuple[int, int, torch.Tensor],
+                     base: Optional[Sequence[torch.Tensor]] = None,
+                     masks: Optional[Sequence] = None
                      ) -> List[torch.Tensor]:
     """Run the executor on all planes of a frame: fields[p] [n_p, NF]
     int32, resid[p] [ph_p, pw_p] int16, dims[p] = (ph_p, pw_p), and a
-    schedule (sbh, sbw, spans) whose spans lie on the planes' device.  Chroma CfL reads the finished luma
-    when the frame is 4:2:0.  CPU tensors take `strip_exec_frame_plain`,
-    which is sequential and does not read the schedule; CUDA tensors
-    launch the kernel once, or raise."""
+    schedule (sbh, sbw, spans) whose spans lie on the planes' device.
+    base[p]: int32 [ph_p, pw_p] planes to reconstruct in place (an inter
+    frame's MC planes), else the planes start at zero; masks[p]: the
+    plane's interintra stack [n, s, s] int32, or None.  Chroma CfL reads
+    the finished luma when the frame is 4:2:0.  CPU tensors take
+    `strip_exec_frame_plain`, which is sequential and does not read the
+    schedule; CUDA tensors launch the kernel once, or raise."""
     n_pl = len(fields)
     if not 1 <= n_pl == len(resid) == len(dims) <= 3:
         raise ValueError("one to three planes, each with fields, residual "
@@ -379,17 +440,25 @@ def strip_exec_frame(fields: Sequence[torch.Tensor],
     dims = [tuple(int(v) for v in d) for d in dims]
     dev = resid[0].device
     if dev.type == "cpu":
-        return strip_exec_frame_plain(fields, resid, dims, bd)
+        return strip_exec_frame_plain(fields, resid, dims, bd, base, masks)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     sbh, sbw, spans = schedule
     grid = sb_grid(dims, sbh, sbw)
     rows, cols = grid[0][:2]
+    masks = list(masks) if masks is not None else [None] * n_pl
     for p, (f, r, d) in enumerate(zip(fields, resid, dims)):
         _check(f, f"fields[{p}]", torch.int32, (f.shape[0], NF), dev)
         _check(r, f"resid[{p}]", torch.int16, d, dev)
+        if base is not None:
+            _check(base[p], f"base[{p}]", torch.int32, d, dev)
+        if masks[p] is not None:
+            m = masks[p]
+            _check(m, f"masks[{p}]", torch.int32,
+                   (m.shape[0], m.shape[1], m.shape[1]), dev)
     _check(spans, "spans", torch.int32, (n_pl, rows * cols, 2), dev)
-    outs = [torch.zeros(d, dtype=torch.int32, device=dev) for d in dims]
+    outs = list(base) if base is not None else [
+        torch.zeros(d, dtype=torch.int32, device=dev) for d in dims]
     cfl = _is_420(dims)
     counters = torch.zeros(1 + n_pl * rows, dtype=torch.int32, device=dev)
     tabs = convert.tables(dev)
@@ -403,7 +472,12 @@ def strip_exec_frame(fields: Sequence[torch.Tensor],
             ptrs(*(spans[p].data_ptr() for p in range(n_pl))),
             ints(*(d[0] for d in dims)), ints(*(d[1] for d in dims)),
             ints(*(g[2] for g in grid)), ints(*(g[3] for g in grid)),
-            rows, cols, int(cfl), counters.data_ptr(),
+            ptrs(*(m.data_ptr() if m is not None else 0 for m in masks)),
+            ints(*(m.shape[1] if m is not None else 0 for m in masks)),
+            rows, cols, int(cfl),
+            # the scan's units need a sequential schedule or masks
+            int(rows * cols == 1 or any(m is not None for m in masks)),
+            counters.data_ptr(),
             tabs["sm_weights"].data_ptr(),
             tabs["filter_intra_taps"].data_ptr(), bd,
             torch.cuda.current_stream(dev).cuda_stream)

@@ -117,11 +117,53 @@ def test_filter_intra_vs_dav1d_and_pallas(cpu, w, h, monkeypatch):
 
 
 def test_gop4_key_frame_then_counted_fallbacks(monkeypatch):
-    """Key frame through the port; the three inter frames are declined
-    to the C recon, which reads the port's uint16 refs."""
+    """Key frame and the three inter frames through the port, no
+    fallback: MC reads the port's device references."""
     path = _gop4_fixture()
     got = _port(path)
-    assert easyav1_tpu_torch.stats == {"frames": 4, "fallbacks": 3}
+    assert easyav1_tpu_torch.stats == {"frames": 4, "fallbacks": 0}
+    monkeypatch.setenv("EASYAV1_PIPE", "native")
+    _assert_frames_equal(got, _decode(lambda: ref_api.EasyAV1(str(path))))
+
+
+@pytest.mark.parametrize("declined", [None, 2])
+def test_gop4_references_cross_between_device_and_c(declined, monkeypatch):
+    """With inter frame `declined` (1-based) refused by InterRecon, the
+    C recon reads the references the device made (their host planes made
+    from the display copies, there and only there), and the next inter
+    frame's MC reads the one the C recon made, uploaded at its first
+    use.  Every frame equals the native decode."""
+    from easyav1_tpu_torch.native import pipe
+    from easyav1_tpu_torch.video.av1.recon.inter_exec import InterRecon
+
+    calls, made = [], {"host": 0, "upload": 0}
+    prepare, host, tensor = (InterRecon.prepare, pipe.DevRef.host,
+                             pipe.DevRef.tensor)
+
+    def decline(self, *a, **k):
+        calls.append(1)
+        return None if len(calls) == declined else prepare(self, *a, **k)
+
+    def spy_host(self):
+        made["host"] += self._host is None
+        return host(self)
+
+    def spy_tensor(self, device):
+        made["upload"] += self._dev is None
+        return tensor(self, device)
+
+    monkeypatch.setattr(InterRecon, "prepare", decline)
+    monkeypatch.setattr(pipe.DevRef, "host", spy_host)
+    monkeypatch.setattr(pipe.DevRef, "tensor", spy_tensor)
+    path = _gop4_fixture()
+    got = _port(path)
+    assert len(calls) == 3
+    assert easyav1_tpu_torch.stats == {"frames": 4,
+                                       "fallbacks": int(declined is not None)}
+    if declined is None:
+        assert made == {"host": 0, "upload": 0}
+    else:
+        assert made["host"] > 0 and made["upload"] > 0, made
     monkeypatch.setenv("EASYAV1_PIPE", "native")
     _assert_frames_equal(got, _decode(lambda: ref_api.EasyAV1(str(path))))
 
@@ -175,8 +217,8 @@ def test_palette_with_residual_runs_on_port(monkeypatch):
 
 
 def test_intrabc_frame_is_declined(monkeypatch):
-    """allow_intrabc frames go to the C recon (the scan executor is the
-    next slice), exactly."""
+    """allow_intrabc frames run on the port, under the sequential
+    schedule, exactly as the native recon."""
     import test_av1_intrabc as TI
     from easyav1_tpu.video.av1 import constants as C
 
@@ -192,7 +234,7 @@ def test_intrabc_frame_is_declined(monkeypatch):
                                           skip=True))
     tu = TI.encode_frame(TI.W, TI.H, 60, blocks, intrabc=True)
     assert _synthetic_frame(tu, monkeypatch) == {"frames": 1,
-                                                 "fallbacks": 1}
+                                                 "fallbacks": 0}
 
 
 def test_port_never_imports_jax():
@@ -233,7 +275,7 @@ def test_port_never_imports_jax():
     assert r.returncode == 0, r.stderr
     res = json.loads(r.stdout.strip().splitlines()[-1])
     assert res == {"gop4": [4, False],
-                   "stats": {"frames": 4, "fallbacks": 3},
+                   "stats": {"frames": 4, "fallbacks": 0},
                    "audio": [8, True], "native": [8, True], "jax": []}
 
 

@@ -11,7 +11,11 @@ Variants are text patches of easyav1_tpu_torch/csrc/intra_strip.cu:
   from global memory;
 - "edge_tile" also keeps the superblock's reconstructed pixels in a
   shared-memory tile (zeroed at its start, written beside the plane)
-  and reads a unit's edges from it where they lie in its own superblock.
+  and reads a unit's edges from it where they lie in its own superblock;
+- "scan_always" launches the kernel's instantiation with the intrabc
+  copy and the interintra blend compiled in on every frame, where the
+  shipped launcher takes it only for frames that may have them: what
+  they cost an intra frame.
 
 Each run checks the variant against the plain version on the 1080p and
 4K key frames of tests/data/bench and prints its wavefront time there
@@ -70,15 +74,15 @@ EDGE_TILE = [
 ]
 PATCHES = {
     "shipped": [],
+    # the kernel with the scan's units (intrabc, interintra) compiled in
+    # on every frame
+    "scan_always": [("void (*kernel)(Args) = scan ? intra_wavefront_kernel<true>",
+                     "void (*kernel)(Args) = true ? intra_wavefront_kernel<true>")],
     "unstaged": [("constexpr int RECS = 64;", "constexpr int RECS = 0;"),
                  ("constexpr int RES_MAX = 128 * 128;",
                   "constexpr int RES_MAX = 1;")],
     "edge_tile": EDGE_TILE,
 }
-# the launcher's C signature (intra_strip._lib)
-VP, CI = ctypes.c_void_p, ctypes.c_int
-ARGTYPES = [CI, VP, VP, VP, VP, VP, VP, VP, VP, CI, CI, CI, VP, VP, VP, CI,
-            VP]
 
 
 def run_variant(name):
@@ -105,7 +109,7 @@ def run_variant(name):
     fn = lib.intra_strip_frame_launch
     # set by hand: loading the shipped build too would put two CUDA
     # runtimes in one process
-    fn.argtypes = ARGTYPES
+    fn.argtypes = intra_strip.ARGTYPES
     fn.restype = ctypes.c_int
     intra_strip._lib = lambda: lib
     dev = torch.device("cuda", 0)
