@@ -16,9 +16,10 @@ kernels (nvcc, `easyav1_tpu_torch/csrc/intra_strip.cu` and
    4K key frame each bit-equal to the first, and on the pred units of a
    1080p and a 4K inter frame in place on their MC planes; the MC kernel
    (6a) and the OBMC kernel (6b) on seeded random MC programs of every
-   unit kind at 1080p, 6a on the 1080p inter frame, and 20 runs of 6a
-   on the 4K inter frame, each bit-equal to the first (a race shows
-   here);
+   unit kind at 1080p and at an odd size (reference pitches that are no
+   multiple of 4), 6a on the 1080p inter frame, 20 runs of 6a on the 4K
+   inter frame and 20 runs of 6b on a random 1080p program, each
+   bit-equal to the first (a race shows here);
 2. drives the port's main path through `easyav1_tpu_torch.EasyAV1(path,
    device="cuda")`, each stream with the launch counts set to 0 just
    before it and read just after: all 30 frames of
@@ -27,12 +28,14 @@ kernels (nvcc, `easyav1_tpu_torch/csrc/intra_strip.cu` and
    bench_av1_4k_3840x2160_24.webm, and the 8 frames of
    tests/data/smoke/inter_modes_96x96.webm (compound, warps and OBMC,
    which the bench streams lack); every frame's hash equal to the port's
-   native C session's, no fallback, one strip launch a frame, and every
-   kernel launched;
+   native C session's, no fallback, and the launches as expected: one
+   strip launch a frame, one of 6a an inter frame, one of 6b a frame
+   with OBMC blocks (122, 89 and 7 over the four streams);
 3. times, in this run (CUDA events for kernels, the host clock around
    synchronised work for stages): the strip kernel under the wavefront
    and the sequential schedule at 1080p and 4K, 6a on a 1080p and a 4K
-   inter frame, 6b on a random OBMC program, their plain versions,
+   inter frame, 6b on a random OBMC program, their plain versions, the
+   strip kernel on a 1080p inter frame's pred units beside its bound,
    deblocking + CDEF, the stages of the 1080p inter stream's frames, and
    the port's fps beside the native C session's on both 1080p streams.
 
@@ -53,7 +56,7 @@ import numpy as np
 import torch
 
 import easyav1_tpu_torch
-from easyav1_tpu_torch import _build, convert, native
+from easyav1_tpu_torch import _build, native
 from easyav1_tpu_torch.api import frame_hash, native_session
 from easyav1_tpu_torch.native import pipe
 from easyav1_tpu_torch.native.pipe import first_frame_inputs
@@ -66,7 +69,8 @@ from easyav1_tpu_torch.video.av1.recon.mc_plan import (
     S_NORES, S_SLOT, S_VALID, S_X, S_Y, W_IX4, W_IY4, W_SLOT, W_VALID, W_X,
     W_Y)
 from easyav1_tpu_torch.video.av1.recon.inter_exec import InterRecon, ii_masks
-from easyav1_tpu_torch.video.av1.recon.records import preprocess_units
+from easyav1_tpu_torch.video.av1.recon.records import (F_H, F_RES, F_W,
+                                                       preprocess_units)
 from easyav1_tpu_torch.video.av1.recon.postfilter import (postfilter_apply,
                                                           postfilter_maps)
 
@@ -78,7 +82,10 @@ KEY_4K = os.path.join(BENCH, "bench_av1_4k_3840x2160_24.webm")
 MODES = os.path.join(REPO, "tests", "data", "smoke", "inter_modes_96x96.webm")
 SEEDS = [301, 304, 305, 317, 310, 311, 312, 313]
 SCAN_SEEDS = [301, 303, 302, 310, 311, 319]
-MC_SEEDS = [21, 22, 23]
+# (seed, width, height): 1080p, and a size whose reference pitches are
+# odd, for the windows' alignment
+MC_PROGRAMS = [(21, 1920, 1080), (22, 1920, 1080), (23, 1920, 1080),
+               (24, 1278, 718)]
 # the kernels' launch counters, by the name of the kernels line
 COUNTERS = {"intra_strip": intra_strip.strip_exec_frame,
             "inter_mc": inter_mc.mc_launch, "obmc": inter_mc.obmc_launch}
@@ -103,7 +110,8 @@ def build():
     for name in ("intra_strip", "inter_mc"):
         _build.load(name)
         for line in (_build.BUILD / f"{name}.log").read_text().splitlines():
-            if "ptxas info" in line and ("Used" in line or "bytes" in line):
+            if "spill" in line or "ptxas info" in line and (
+                    "Used" in line or "bytes" in line):
                 print(f"{name}: {line.strip()}")
 
 
@@ -135,9 +143,18 @@ def decode_hashes(make, limit=None):
     return hashes, time.perf_counter() - t0
 
 
+HOLD_CYCLES = 20_000_000    # some 10 ms of device clock
+
+
 def cuda_ms(fn, reps):
+    """Mean device time of fn over reps calls (CUDA events), after one
+    warm-up call.  The device is first held busy for HOLD_CYCLES, so that
+    the host has queued every call before the first one starts: a kernel
+    shorter than its wrapper's host time is timed back to back, not at
+    the host's launch rate."""
     fn()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -283,12 +300,13 @@ def zero_planes(dims, dev):
 
 
 def check_mc(dev):
-    """Phase 1: kernels 6a and 6b on random 1080p MC programs of every
-    unit kind, against their plain versions, tolerance 0.  Returns
-    (6a error, 6b error, the last program)."""
+    """Phase 1: kernels 6a and 6b on random MC programs of every unit
+    kind, against their plain versions, tolerance 0; then 20 runs of 6b
+    on the last 1080p program, each bit-equal to the first.  Returns (6a
+    error, 6b error, the last 1080p program)."""
     err_mc = err_obmc = 0
-    for seed in MC_SEEDS:
-        prog = random_mc_program(seed, 1920, 1080)
+    for seed, width, height in MC_PROGRAMS:
+        prog = random_mc_program(seed, width, height)
         resid, refs = mc_inputs(prog, dev)
         plan = prog["plan"]
         got = inter_mc.mc_units(zero_planes(prog["dims"], dev), resid, refs,
@@ -299,20 +317,36 @@ def check_mc(dev):
         got = inter_mc.obmc(got, resid, refs, plan, 8)
         want = inter_mc.obmc_plain(want, resid, refs, plan, 8)
         e_ob = max_err(got, want)
+        if (width, height) == (1920, 1080):
+            last = (prog, got)
 
         def n(name):
             return sum(v.shape[0] for v in plan[name].values())
 
         n_masked = sum(int((v[:, P_MODE] == 1).sum())
                        for v in plan["pairs"].values())
-        print(f"MC program seed {seed}: {n('singles')} single, "
+        print(f"MC program seed {seed} {width}x{height}: {n('singles')} single, "
               f"{n('pairs')} pair ({n_masked} masked), {n('warps')} warp, "
               f"{n('obmc_above') + n('obmc_left')} OBMC overlay units, "
-              f"{inter_mc.mc_tables(plan)['tiles'].shape[0]} tiles; "
+              f"{n('obmc_resid')} OBMC blocks, "
+              f"{inter_mc.mc_tables(plan)['n_tiles']} and "
+              f"{inter_mc.obmc_tables(plan)['n_tiles']} tiles; "
               f"6a max_abs_err {e_mc}, 6b max_abs_err {e_ob}")
         err_mc, err_obmc = max(err_mc, e_mc), max(err_obmc, e_ob)
     check(err_mc == 0 and err_obmc == 0,
           f"MC kernels vs plain max_abs_err {err_mc}, {err_obmc}")
+    prog, first = last
+    resid, refs = mc_inputs(prog, dev)
+    base = inter_mc.mc_units(zero_planes(prog["dims"], dev), resid, refs,
+                             prog["plan"], 8)
+    tabs = inter_mc.upload(inter_mc.obmc_tables(prog["plan"]), dev)
+    for k in range(20):
+        again = inter_mc.obmc_launch([b.clone() for b in base], resid, refs,
+                                     tabs, 8)
+        check(all(torch.equal(a, b) for a, b in zip(again, first)),
+              f"6b run {k} differs from the first")
+    print(f"MC program seed {MC_PROGRAMS[2][0]}: {tabs['n_tiles']} tiles, "
+          "20 runs of 6b bit-equal to the first")
     return err_mc, err_obmc, prog
 
 
@@ -364,15 +398,14 @@ def check_inter_frames(dev):
     caps = {"1080p": capture_inter(INTER_1080, 2, dev),
             "4K": capture_inter(KEY_4K, 2, dev)}
     for cap in caps.values():
-        cap["tabs"] = convert.from_reference(
-            inter_mc.mc_tables(cap["plan"]), dev)
+        cap["tabs"] = inter_mc.upload(inter_mc.mc_tables(cap["plan"]), dev)
     c = caps["1080p"]
     got = inter_mc.mc_launch(zero_planes(c["dims"], dev), c["resid"],
                              c["refs"], c["tabs"], 8)
     want = inter_mc.mc_units_plain(zero_planes(c["dims"], dev), c["resid"],
                                    c["refs"], c["plan"], 8)
     err = max_err(got, want)
-    print(f"1080p inter frame {c['n']}: {c['tabs']['tiles'].shape[0]} "
+    print(f"1080p inter frame {c['n']}: {c['tabs']['n_tiles']} "
           f"tiles, 6a max_abs_err {err}")
     check(err == 0, f"6a on the 1080p inter frame max_abs_err {err}")
     e = 0
@@ -392,15 +425,17 @@ def check_inter_frames(dev):
                                    c["refs"], c["tabs"], 8)
         check(all(torch.equal(a, b) for a, b in zip(again, first)),
               f"4K 6a run {k} differs from the first")
-    print(f"4K inter frame {c['n']}: {c['tabs']['tiles'].shape[0]} tiles, "
+    print(f"4K inter frame {c['n']}: {c['tabs']['n_tiles']} tiles, "
           "20 runs of 6a bit-equal to the first")
     return err, e, caps
 
 
-STREAMS = [("1080p intra", INTRA_1080, 30, False),
-           ("1080p inter", INTER_1080, 60, True),
-           ("4K", KEY_4K, 24, True),
-           ("inter modes 96x96", MODES, 8, True)]
+# name, path, frames, and the launches expected: the strip kernel once a
+# frame, 6a once an inter frame, 6b once a frame that has OBMC blocks
+STREAMS = [("1080p intra", INTRA_1080, 30, (30, 0, 0)),
+           ("1080p inter", INTER_1080, 60, (60, 59, 0)),
+           ("4K", KEY_4K, 24, (24, 23, 0)),
+           ("inter modes 96x96", MODES, 8, (8, 7, 7))]
 
 
 def main_path():
@@ -408,7 +443,7 @@ def main_path():
     stream with the launch counts set to 0 just before it and read just
     after.  Returns the launches of each kernel over all streams."""
     total = dict.fromkeys(COUNTERS, 0)
-    for name, path, n, inter in STREAMS:
+    for name, path, n, want in STREAMS:
         easyav1_tpu_torch.stats.update(frames=0, fallbacks=0)
         reset_counts()
         port, _ = decode_hashes(
@@ -423,9 +458,8 @@ def main_path():
               f"{sum(a != b for a, b in zip(port, native_h))} differ")
         check(stats["fallbacks"] == 0 and stats["frames"] >= n,
               f"{name} stats {stats}")
-        check(c["intra_strip"] == stats["frames"],
-              f"{name}: strip launches {c['intra_strip']}, want one a frame")
-        check(not inter or c["inter_mc"] >= 1, f"{name}: no MC launch")
+        check(stats["frames"] == n and tuple(c.values()) == want,
+              f"{name}: launches {c}, want {want} (strip, 6a, 6b)")
         for k in total:
             total[k] += c[k]
     check(all(v > 0 for v in total.values()), f"a kernel never ran: {total}")
@@ -574,8 +608,7 @@ def mc_bound(plan, refs, dims):
             fp.out(key, dims[p], size, f, W_X, W_Y, 8, 8)
         fp.window(p, refs, f, W_SLOT, f[:, W_IY4] - 7, f[:, W_IX4] - 7,
                   f[:, W_IY4] + 8, f[:, W_IX4] + 8)
-    nbytes = fp.nbytes() + sum(a.nbytes for a in
-                               inter_mc.mc_tables(plan).values())
+    nbytes = fp.nbytes() + inter_mc.mc_tables(plan)["buf"].nbytes
     ops = sum(f.shape[0] * w * h * (_taps_ops(h) + 4)
               for (_p, w, h), f in plan["singles"].items())
     ops += sum(f.shape[0] * w * h * (2 * _taps_ops(h) + 10)
@@ -586,7 +619,7 @@ def mc_bound(plan, refs, dims):
 
 
 def obmc_bound(plan, refs, dims):
-    """(ms, bound_by) of the least time for 6b's three passes, from the
+    """(ms, bound_by) of the least time for 6b's work, from the
     plan's own rects: its tables read once, the int32 pixels of the
     overlay and OBMC block rects read once and written once (8 bytes a
     pixel), the residual under the OBMC blocks read once (2 bytes a
@@ -602,14 +635,33 @@ def obmc_bound(plan, refs, dims):
     for (p, w, h), f in plan["obmc_resid"].items():
         fp.out(("plane", p), dims[p], 8, f, 0, 1, w, h)
         fp.out(("resid", p), dims[p], 2, f, 0, 1, w, h)
-    nbytes = fp.nbytes() + sum(t[k].nbytes for t in inter_mc.obmc_tables(plan)
-                               for k in ("tiles", "units"))
+    nbytes = fp.nbytes() + inter_mc.obmc_tables(plan)["buf"].nbytes
     ops = sum(f.shape[0] * w * h * (_taps_ops(h) + 8)
               for d in ("obmc_above", "obmc_left")
               for (_p, w, h), f in plan[d].items())
     ops += sum(f.shape[0] * w * h * 3
                for (_p, w, h), f in plan["obmc_resid"].items())
     return _bound(nbytes, ops)
+
+
+def strip_inter_bound(c):
+    """(ms, bound_by) of the least time for the strip kernel's work on a
+    captured inter frame's pred units, in place on its MC planes: the
+    records, the schedule and the interintra masks read once; under each
+    unit the residual read once (2 bytes a pixel) and the int32 pixels
+    written once, its 2 (w + h) + 1 edge pixels read once, and an
+    interintra unit's base pixels read once; against 3 integer
+    operations a pixel."""
+    nbytes = c["schedule"][2].numel() * 4
+    pix = 0
+    for f, m in zip(c["fields"], c["masks"]):
+        f = f.cpu().numpy()
+        w, h = f[:, F_W].astype(np.int64), f[:, F_H].astype(np.int64)
+        nbytes += f.nbytes + (0 if m is None else m.numel() * 4)
+        nbytes += int((w * h * (6 + 4 * (f[:, F_RES] != 0))
+                       + 4 * (2 * (w + h) + 1)).sum())
+        pix += int((w * h).sum())
+    return _bound(nbytes, 3 * pix)
 
 
 def inter_timings(caps, prog, dev):
@@ -625,36 +677,51 @@ def inter_timings(caps, prog, dev):
         bound, by = mc_bound(c["plan"], c["refs"], c["dims"])
         out[name] = {"ms": ms, "bound_ms": bound, "bound_by": by}
         print(f"{name} inter frame {c['n']} MC (6a): {ms:.4f} ms, "
-              f"{c['tabs']['tiles'].shape[0]} tiles, bound {bound:.4f} ms "
+              f"{c['tabs']['n_tiles']} tiles, bound {bound:.4f} ms "
               f"({by})")
     c = caps["1080p"]
     planes = [b.clone() for b in c["base"]]
     out["strip_ms"] = cuda_ms(lambda: strip_inter(c, planes), 20)
+    bound, by = strip_inter_bound(c)
     print(f"1080p inter frame {c['n']} strip kernel on its "
           f"{sum(f.shape[0] for f in c['fields'])} pred units: "
-          f"{out['strip_ms']:.4f} ms")
+          f"{out['strip_ms']:.4f} ms, bound {bound * 1e3:.4f} us ({by})")
+    parts = dict.fromkeys(("zero planes", "tables", "upload",
+                           "launch and wait"), 0.0)
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        planes = zero_planes(c["dims"], dev)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        tabs = inter_mc.mc_tables(c["plan"], pinned=True)
+        t.append(time.perf_counter())
+        tabs = inter_mc.upload(tabs, dev)
+        t.append(time.perf_counter())
+        inter_mc.mc_launch(planes, c["resid"], c["refs"], tabs, 8)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        for k, name in enumerate(parts):
+            parts[name] += (t[k + 1] - t[k]) * 100
+    print(f"1080p inter frame {c['n']} MC stage parts (ms, host clock, mean "
+          "of 10): " + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
     out["mc_plain_ms"] = cuda_ms(lambda: inter_mc.mc_units_plain(
         zero_planes(c["dims"], dev), c["resid"], c["refs"], c["plan"], 8), 2)
     print(f"1080p inter frame {c['n']} MC plain version "
           f"{out['mc_plain_ms']:.3f} ms")
     resid, refs = mc_inputs(prog, dev)
     plan = prog["plan"]
-    passes = [{"pass": t["pass"], **convert.from_reference(
-        {k: t[k] for k in ("tiles", "units")}, dev)}
-        for t in inter_mc.obmc_tables(plan)]
+    tabs = inter_mc.upload(inter_mc.obmc_tables(plan), dev)
     planes = zero_planes(prog["dims"], dev)
-
-    def obmc_all():
-        for t in passes:
-            inter_mc.obmc_launch(planes, resid, refs, t, 8)
-
-    ms = cuda_ms(obmc_all, 20)
+    ms = cuda_ms(lambda: inter_mc.obmc_launch(planes, resid, refs, tabs, 8),
+                 20)
     plain = cuda_ms(lambda: inter_mc.obmc_plain(planes, resid, refs, plan,
                                                 8), 2)
     bound, by = obmc_bound(plan, refs, prog["dims"])
     out["obmc"] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
                    "bound_by": by}
-    print(f"random 1080p OBMC program, 6b's {len(passes)} passes: "
+    print(f"random 1080p OBMC program, 6b's one launch over "
+          f"{tabs['n_tiles']} tiles: "
           f"{ms:.4f} ms, plain version {plain:.3f} ms, bound {bound:.4f} ms "
           f"({by})")
     pipe.stage_log = []

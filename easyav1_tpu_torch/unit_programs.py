@@ -239,7 +239,8 @@ def random_mc_program(seed: int, width: int = 100, height: int = 76,
     `mc_plan.export_inter_plan`'s layout, over a random partition of each
     plane into blocks of 4 to 128 pixels: single-reference units of the
     8 filter classes with subpel phases, a tenth of them without the
-    residual (interintra); compound pairs with average or distance
+    residual (interintra), and half of the chroma ones that are 4 wide
+    or high cut into units of 2 (sub-8x8 chroma); compound pairs with average or distance
     weights, or with the wedge masks of their size or diffwtd masks; 8x8 warp units with valid shears; OBMC
     blocks (bare prediction, above and left overlays with masks of 2 to
     32 lines, the deferred residual rects).  Positions reach well past
@@ -252,6 +253,7 @@ def random_mc_program(seed: int, width: int = 100, height: int = 76,
                                                    wedge_allowed, wedge_mask)
 
     rng = np.random.default_rng(seed)
+    rng_sub = np.random.default_rng([seed, 8])   # the sub-8x8 chroma cuts
     bank = M._filter_bank()
     aw, ah = -(-width // 4) * 4, -(-height // 4) * 4
     dims = [(ah, aw), (ah >> 1, aw >> 1), (ah >> 1, aw >> 1)]
@@ -264,7 +266,7 @@ def random_mc_program(seed: int, width: int = 100, height: int = 76,
     def add(d, key, row):
         d.setdefault(key, []).append(row)
 
-    def pred(x, y):
+    def pred(x, y, rng=rng):
         """slot, ix, iy, fh[8], fv[8] of one prediction at (x, y)."""
         reach = 200 if rng.random() < 0.15 else 24
         ix, iy = (int(v + rng.integers(-reach, reach + 1)) for v in (x, y))
@@ -272,8 +274,8 @@ def random_mc_program(seed: int, width: int = 100, height: int = 76,
         fv = bank[int(rng.integers(0, 8)), int(rng.integers(0, 16))]
         return [int(rng.integers(0, n_slots)), ix, iy, *fh, *fv]
 
-    def single(x, y, nores):
-        s = pred(x, y)
+    def single(x, y, nores, rng=rng):
+        s = pred(x, y, rng)
         return [x, y, s[0], s[1], s[2], 1, *s[3:], nores]
 
     def mask(w, h):
@@ -292,8 +294,15 @@ def random_mc_program(seed: int, width: int = 100, height: int = 76,
         for x, y, w, h in _blocks(ph, pw, 128 >> (p > 0), rng):
             kind = rng.random()
             if kind < 0.5:
-                add(plan["singles"], (p, w, h),
-                    single(x, y, int(rng.random() < 0.1)))
+                unit = single(x, y, int(rng.random() < 0.1))
+                if p and min(w, h) == 4 and rng_sub.random() < 0.5:
+                    sw, sh = (2 if w == 4 else w), (2 if h == 4 else h)
+                    for dy in range(0, h, sh):
+                        for dx in range(0, w, sw):
+                            add(plan["singles"], (p, sw, sh),
+                                single(x + dx, y + dy, 0, rng_sub))
+                else:
+                    add(plan["singles"], (p, w, h), unit)
             elif kind < 0.7:
                 mode, midx = int(rng.random() < 0.5), 0
                 w0 = int(rng.choice([8, 9, 7, 11, 5, 12, 4, 13, 3]))

@@ -14,13 +14,18 @@ each used reference slot, in the plan's dense slot order, as a uint8
   plain torch versions, vectorised over the units of one bucket.
 - `mc_units`: every plane's single, pair and warp units of a frame, in
   place.  CPU tensors take `mc_units_plain`; CUDA tensors launch kernel
-  6a of `csrc/inter_mc.cu` once (`mc_launch`, on the host's tile tables
-  `mc_tables`), or raise.
-- `obmc`: the OBMC passes of a frame, in place: above overlays, left
-  overlays, then the deferred residual over the OBMC blocks, in the
-  reference's order.  CPU tensors take `obmc_plain`; CUDA tensors launch
-  kernel 6b once for each pass that has units (`obmc_launch`, on
-  `obmc_tables`), or raise.
+  6a of `csrc/inter_mc.cu` once (`mc_launch`), or raise.  The host
+  uploads the plan's unit tables as they are, in one buffer with a small
+  bucket table (`mc_tables`); the kernel finds each tile of each unit
+  from a work index (`work_items` is that arithmetic in numpy).
+- `obmc`: the OBMC passes of a frame, in place.  CPU tensors take
+  `obmc_plain`, the reference's three passes in order: above overlays,
+  left overlays, the deferred residual over the OBMC blocks.  CUDA
+  tensors launch kernel 6b once (`obmc_launch`), or raise: every overlay
+  lies inside its OBMC block's rect and predicts from the references, so
+  one tile of a block can blend its above overlays, then its left ones,
+  add the residual and store once.  `obmc_tables` groups the overlays by
+  block.
 - `mc_launch.launches`, `obmc_launch.launches`: the kernels' launch
   counts.
 """
@@ -28,7 +33,7 @@ each used reference slot, in the plan's dense slot order, as a uint8
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,11 +45,21 @@ from easyav1_tpu_torch.video.av1.recon.mc_plan import (
     W_BETA, W_DELTA, W_GAMMA, W_IX4, W_IY4, W_SLOT, W_SX4, W_SY4, W_VALID,
     W_X, W_Y)
 
-TILE = 16                 # output tile of a CTA (warps: their 8x8)
-# tile record: kind, plane, unit row, unit w, unit h, x and y offset of
-# the tile in its unit, and for pairs the offset of the bucket's masks
-NT = 8
-K_SINGLE, K_PAIR, K_WARP, K_OVERLAY, K_RESID = range(5)
+TILE = 16                 # the widest output tile of a warp
+K_SINGLE, K_PAIR, K_WARP, K_BLOCK = range(4)
+# bucket row: kind, plane, unit w, unit h, first unit (row of the kind's
+# table), first work index, byte offset of a pair bucket's mask stack
+B_KIND, B_PLANE, B_W, B_H, B_UNIT, B_TILE, B_MASK = range(7)
+NB = 8
+MAX_BUCKETS = 512         # the kernels keep the buckets' first work
+                          # indices in shared memory
+# kernel 6b's records: an OBMC block [NK] (x, y, first overlay, above
+# count, left count) and an overlay [NOV] (a single unit's NS fields,
+# then the rect's w and h)
+K_X, K_Y, K_OV, K_NA, K_NL = range(5)
+NK = 5
+O_W, O_H = NS, NS + 1
+NOV = NS + 2
 
 
 # ---------------------------------------------------------------- plain
@@ -237,75 +252,237 @@ def obmc_plain(planes: List[torch.Tensor], resid, refs, plan: Dict,
     return planes
 
 
-# ---------------------------------------------------------- tile tables
+# ---------------------------------------------------------- host tables
 
-def _tiles(kind, plane, w, h, n, first, moff=0):
-    """Tile records [k n, NT] of n units of one (w, h) bucket whose rows
-    start at `first`: each unit cut into TILE x TILE tiles."""
-    ny, nx = -(-h // TILE), -(-w // TILE)
-    t = np.empty((n * ny * nx, NT), np.int32)
-    t[:, 0] = kind
-    t[:, 1] = plane
-    t[:, 2] = np.repeat(np.arange(first, first + n), ny * nx)
-    t[:, 3] = w
-    t[:, 4] = h
-    t[:, 5] = np.tile(np.arange(nx) * TILE, n * ny)
-    t[:, 6] = np.tile(np.repeat(np.arange(ny) * TILE, nx), n)
-    t[:, 7] = moff
-    return t
+def tile_dims(w: int, h: int) -> Tuple[int, int]:
+    """The (width, height) of the tiles a w x h unit is cut into, one
+    tile a warp: at most TILE wide, and 256 pixels or 32 rows."""
+    tw = min(w, TILE)
+    return tw, min(h, TILE if tw == TILE else 2 * TILE)
 
 
-def _table(buckets, kind, width, tiles, stacks=None, masks=None):
-    """The units of `buckets` {(plane, w, h) or plane: [n, width]},
-    concatenated in sorted order, and their tiles appended to `tiles`;
-    for pairs, each bucket's mask stack (`stacks`, the plan's
-    pair_masks) appended flat to `masks`, its tiles carrying the
-    offset."""
-    rows, first = [], 0
-    for key in sorted(buckets):
-        f = buckets[key]
-        p, w, h = key if isinstance(key, tuple) else (key, 8, 8)
-        moff = 0
-        if masks is not None:
-            moff = sum(m.size for m in masks)
-            masks.append(np.ascontiguousarray(
-                stacks.get(key, np.zeros((1, h, w))), np.int32).ravel())
-        tiles.append(_tiles(kind, p, w, h, f.shape[0], first, moff))
-        rows.append(np.asarray(f, np.int32).reshape(-1, width))
-        first += f.shape[0]
-    return (np.concatenate(rows) if rows
-            else np.zeros((0, width), np.int32))
+def _tiles_per_unit(w: int, h: int) -> int:
+    tw, th = tile_dims(w, h)
+    return (w // tw) * (h // th)
 
 
-def mc_tables(plan: Dict) -> Dict[str, np.ndarray]:
-    """Kernel 6a's host tables of a plan: "tiles" [T, NT], "singles"
-    [n, NS], "pairs" [n, NPR], "warps" [n, NW] and "masks" (the pair
-    buckets' mask stacks, flat), int32."""
-    tiles, masks = [], []
-    out = {"singles": _table(plan["singles"], K_SINGLE, NS, tiles),
-           "pairs": _table(plan["pairs"], K_PAIR, NPR, tiles,
-                           plan["pair_masks"], masks),
-           "warps": _table(plan["warps"], K_WARP, NW, tiles)}
-    out["tiles"] = (np.concatenate(tiles) if tiles
-                    else np.zeros((0, NT), np.int32))
-    out["masks"] = (np.concatenate(masks) if masks
-                    else np.zeros(1, np.int32))
+def _check_size(w: int, h: int, name: str):
+    if not (w in _SIZES and h in _SIZES):
+        raise ValueError(f"{name}: units of {w}x{h}, want powers of two "
+                         f"from 2 to 128")
+
+
+_SIZES = (2, 4, 8, 16, 32, 64, 128)
+
+
+class _Buffer:
+    """The single int32 upload buffer of a kernel's tables: sections are
+    laid end to end, `offsets` in int32 words; `host` is the torch
+    tensor (pinned when asked), `buf` its numpy view."""
+
+    def __init__(self, sizes: Sequence[int], pinned: bool):
+        self.offsets = [0]
+        for n in sizes:
+            self.offsets.append(self.offsets[-1] + n)
+        self.host = torch.empty(max(self.offsets[-1], 1), dtype=torch.int32,
+                                pin_memory=pinned)
+        self.buf = self.host.numpy()
+
+    def section(self, k: int, width: int, dtype=np.int32) -> np.ndarray:
+        a = self.buf[self.offsets[k]:self.offsets[k + 1]]
+        return a.view(dtype).reshape(-1, width)
+
+
+def mc_tables(plan: Dict, pinned: bool = False) -> Dict:
+    """Kernel 6a's host tables of a plan, in one buffer: {"host": the
+    int32 tensor to upload, "buf": its numpy view, "layout": [buckets,
+    work indices, then the int32 offsets in buf of "buckets" [nb, NB],
+    "singles" [n, NS], "pairs" [n, NPR], "warps" [n, NW] and "masks"
+    (the pair buckets' mask stacks as uint8, flat), warp units], those
+    sections as views of buf, "n_tiles"}.  The unit tables are the
+    plan's buckets in sorted order, as they are."""
+    kinds = ((K_SINGLE, "singles", NS), (K_PAIR, "pairs", NPR),
+             (K_WARP, "warps", NW))
+    rows, n_tiles, n_mask = [], 0, 0
+    stacks = []
+    for kind, name, _width in kinds:
+        first = 0
+        for key in sorted(plan[name]):
+            f = plan[name][key]
+            p, w, h = (key, 8, 8) if kind == K_WARP else key
+            _check_size(w, h, name)
+            moff = 0
+            if kind == K_PAIR:
+                m = plan["pair_masks"].get(key)
+                masked = f[:, P_MODE] == 1
+                if masked.any() and (m is None or int(
+                        f[masked, P_MIDX].max()) >= m.shape[0]):
+                    raise ValueError(f"pairs {key}: a mask index without "
+                                     f"its mask")
+                if m is not None:
+                    moff = n_mask
+                    stacks.append(m)
+                    n_mask += m.size
+            rows.append((kind, p, w, h, first, n_tiles, moff, 0))
+            first += f.shape[0]
+            n_tiles += f.shape[0] * _tiles_per_unit(w, h)
+    if len(rows) > MAX_BUCKETS:
+        raise ValueError(f"{len(rows)} buckets, at most {MAX_BUCKETS}")
+    count = {name: sum(f.shape[0] for f in plan[name].values())
+             for _k, name, _w in kinds}
+    b = _Buffer([len(rows) * NB] + [count[name] * width
+                                    for _k, name, width in kinds]
+                + [-(-n_mask // 4)], pinned)
+    out = {"host": b.host, "buf": b.buf, "n_tiles": n_tiles,
+           "buckets": b.section(0, NB)}
+    out["buckets"][:] = np.asarray(rows, np.int32).reshape(-1, NB)
+    for k, (_kind, name, width) in enumerate(kinds):
+        sec = out[name] = b.section(k + 1, width)
+        first = 0
+        for key in sorted(plan[name]):
+            f = plan[name][key]
+            sec[first:first + f.shape[0]] = f
+            first += f.shape[0]
+    masks = out["masks"] = b.section(4, 1, np.uint8).ravel()
+    first = 0
+    for m in stacks:
+        masks[first:first + m.size] = m.ravel()
+        first += m.size
+    out["layout"] = [len(rows), n_tiles, *b.offsets[:5], count["warps"]]
     return out
 
 
-def obmc_tables(plan: Dict) -> List[Dict[str, np.ndarray]]:
-    """Kernel 6b's host tables of a plan, one for each pass that has
-    units, in order: {"pass": 0 above, 1 left, 2 residual, "tiles"
-    [T, NT], "units" [n, NS] or, for the residual, [n, 2] rects}."""
-    out = []
-    for k, name, width in ((0, "obmc_above", NS), (1, "obmc_left", NS),
-                           (2, "obmc_resid", 2)):
-        if plan[name]:
-            tiles = []
-            units = _table(plan[name], K_RESID if k == 2 else K_OVERLAY,
-                           width, tiles)
-            out.append({"pass": k, "tiles": np.concatenate(tiles),
-                        "units": units})
+def work_items(buckets: np.ndarray, n_tiles: int, idx: np.ndarray) -> Dict:
+    """The kernels' work-index arithmetic in numpy, step for step (the
+    kernels divide by shifting: unit and tile sizes are powers of two):
+    for each work index of idx, {"bucket": its row of buckets (the last
+    whose first work index is not above it, by bisection), "unit": its
+    row of the kind's unit table, "ox", "oy": its tile's offset in the
+    unit, "tw", "th": the tile's size, "mask": the bucket's mask byte
+    offset}."""
+    idx = np.asarray(idx, np.int64)
+    first = np.append(buckets[:, B_TILE], n_tiles).astype(np.int64)
+    lo = np.zeros_like(idx)
+    hi = np.full_like(idx, buckets.shape[0])
+    while np.any(hi - lo > 1):
+        open_ = hi - lo > 1
+        mid = (lo + hi) >> 1
+        take = first[mid] <= idx
+        lo = np.where(open_ & take, mid, lo)
+        hi = np.where(open_ & ~take, mid, hi)
+    b = buckets[lo].astype(np.int64)
+    w, h = b[:, B_W], b[:, B_H]
+    tw = np.minimum(w, TILE)
+    th = np.minimum(h, np.where(tw == TILE, TILE, 2 * TILE))
+    nx = w // tw
+    per = nx * (h // th)
+    local = idx - b[:, B_TILE]
+    t = local % per
+    return {"bucket": lo, "unit": b[:, B_UNIT] + local // per,
+            "ox": (t % nx) * tw, "oy": (t // nx) * th, "tw": tw, "th": th,
+            "mask": b[:, B_MASK]}
+
+
+def _block_labels(plan: Dict) -> Tuple[np.ndarray, Dict[int, np.ndarray]]:
+    """(blocks [n, 4] of x, y, w, h in the sorted order of the plan's
+    obmc_resid buckets, per plane a grid of 4x4 cells holding the row of
+    the block that covers each cell, or -1)."""
+    keys = sorted(plan["obmc_resid"])
+    blocks = np.concatenate(
+        [np.concatenate([plan["obmc_resid"][k].reshape(-1, 2),
+                         np.broadcast_to(np.asarray(k[1:], np.int32),
+                                         (plan["obmc_resid"][k].shape[0],
+                                          2))], 1) for k in keys]
+        or [np.zeros((0, 4), np.int32)]).astype(np.int64)
+    if np.any(blocks & 3) or np.any(blocks[:, :2] < 0):
+        raise ValueError("OBMC blocks must lie on multiples of 4 pixels")
+    labels, first = {}, 0
+    for p in sorted({k[0] for k in keys}):
+        mine = [k for k in keys if k[0] == p]
+        n = sum(plan["obmc_resid"][k].shape[0] for k in mine)
+        b = blocks[first:first + n] >> 2
+        grid = np.full((int((b[:, 1] + b[:, 3]).max()),
+                        int((b[:, 0] + b[:, 2]).max())), -1, np.int64)
+        at = 0
+        for k in mine:
+            m = plan["obmc_resid"][k].shape[0]
+            c = b[at:at + m]
+            ys = c[:, 1, None, None] + np.arange(k[2] >> 2)[None, :, None]
+            xs = c[:, 0, None, None] + np.arange(k[1] >> 2)[None, None, :]
+            grid[ys, xs] = np.arange(first + at, first + at + m)[:, None,
+                                                                   None]
+            at += m
+        if np.count_nonzero(grid >= 0) != int((b[:, 2] * b[:, 3]).sum()):
+            raise ValueError(f"plane {p}: OBMC blocks overlap")
+        labels[p] = grid
+        first += n
+    return blocks, labels
+
+
+def obmc_tables(plan: Dict, pinned: bool = False) -> Dict:
+    """Kernel 6b's host tables of a plan, in one buffer: {"host",
+    "buf", "layout": [buckets, work indices, then the int32 offsets in
+    buf of "buckets" [nb, NB] (one for each (plane, w, h) of the OBMC
+    blocks), "blocks" [n, NK] and "overlays" [n, NOV]], those sections
+    as views, "n_tiles"}.  A work index is one tile of one block.  Each
+    overlay goes to the block whose rect holds it: the blocks' rects are
+    disjoint, so there is one, and a plan with an overlay outside every
+    block raises.  A block's overlays are consecutive, above before
+    left."""
+    blocks, labels = _block_labels(plan)
+    ov, owner, left = [], [], []
+    for is_left, name in enumerate(("obmc_above", "obmc_left")):
+        for (p, w, h), f in sorted(plan[name].items()):
+            x, y = f[:, S_X].astype(np.int64), f[:, S_Y].astype(np.int64)
+            grid = labels.get(p)
+            if grid is None:
+                raise ValueError(f"{name} {(p, w, h)}: no OBMC block")
+            cy, cx = y >> 2, x >> 2
+            inside = (x >= 0) & (y >= 0) & (cy < grid.shape[0]) \
+                & (cx < grid.shape[1])
+            blk = np.where(inside, grid[np.where(inside, cy, 0),
+                                        np.where(inside, cx, 0)], -1)
+            b = blocks[blk]
+            held = (blk >= 0) & (x >= b[:, 0]) & (y >= b[:, 1]) \
+                & (x + w <= b[:, 0] + b[:, 2]) & (y + h <= b[:, 1] + b[:, 3])
+            if not held.all():
+                raise ValueError(f"{name} {(p, w, h)}: an overlay outside "
+                                 f"every OBMC block")
+            rec = np.empty((f.shape[0], NOV), np.int32)
+            rec[:, :NS] = f
+            rec[:, O_W], rec[:, O_H] = w, h
+            ov.append(rec)
+            owner.append(blk)
+            left.append(np.full(f.shape[0], is_left))
+    n_blk = blocks.shape[0]
+    owner = np.concatenate(owner or [np.zeros(0, np.int64)])
+    left = np.concatenate(left or [np.zeros(0, np.int64)])
+    n_above = np.bincount(owner[left == 0], minlength=n_blk)
+    n_left = np.bincount(owner[left == 1], minlength=n_blk)
+    if n_blk and int((n_above + n_left).max()) > 255:
+        raise ValueError("an OBMC block with more than 255 overlays")
+    rows, n_tiles, first = [], 0, 0
+    for (p, w, h) in sorted(plan["obmc_resid"]):
+        _check_size(w, h, "obmc_resid")
+        n = plan["obmc_resid"][(p, w, h)].shape[0]
+        rows.append((K_BLOCK, p, w, h, first, n_tiles, 0, 0))
+        first += n
+        n_tiles += n * _tiles_per_unit(w, h)
+    if len(rows) > MAX_BUCKETS:
+        raise ValueError(f"{len(rows)} buckets, at most {MAX_BUCKETS}")
+    b = _Buffer([len(rows) * NB, n_blk * NK, owner.size * NOV], pinned)
+    out = {"host": b.host, "buf": b.buf, "n_tiles": n_tiles,
+           "buckets": b.section(0, NB), "blocks": b.section(1, NK),
+           "overlays": b.section(2, NOV),
+           "layout": [len(rows), n_tiles, *b.offsets[:3]]}
+    out["buckets"][:] = np.asarray(rows, np.int32).reshape(-1, NB)
+    out["blocks"][:, :2] = blocks[:, :2]
+    out["blocks"][:, K_OV] = np.cumsum(n_above + n_left) - n_above - n_left
+    out["blocks"][:, K_NA] = n_above
+    out["blocks"][:, K_NL] = n_left
+    if owner.size:
+        out["overlays"][:] = np.concatenate(ov)[
+            np.lexsort((left, owner))]
     return out
 
 
@@ -316,12 +493,11 @@ def _lib():
     lib = _build.load("inter_mc")
     if lib.inter_mc_launch.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.inter_mc_launch.restype = ci
         frame = [vp] * 7         # _frame_args
-        lib.inter_mc_launch.argtypes = [ci, *frame, vp, ci, vp, vp, vp, vp,
-                                        vp, ci, vp]
+        lib.inter_mc_launch.restype = ci
+        lib.inter_mc_launch.argtypes = [ci, *frame, vp, vp, vp, ci, vp]
         lib.obmc_launch.restype = ci
-        lib.obmc_launch.argtypes = [ci, ci, *frame, vp, ci, vp, vp, ci, vp]
+        lib.obmc_launch.argtypes = [ci, *frame, vp, vp, vp, ci, vp]
     return lib
 
 
@@ -362,22 +538,36 @@ def _frame_args(planes, resid, refs):
             ints(*(o.shape[1] for o in planes)), ref_ptrs, rw, rh)
 
 
-def mc_launch(planes: List[torch.Tensor], resid: Sequence[torch.Tensor],
-              refs: Sequence[Sequence[torch.Tensor]],
-              tabs: Dict[str, torch.Tensor], bd: int) -> List[torch.Tensor]:
-    """Launch kernel 6a once on CUDA tensors, in place: `mc_tables` on
-    the planes' device as `tabs`, other arguments as `mc_units`.  Raises
-    if the launch fails."""
+def upload(tabs: Dict, dev) -> Dict:
+    """A kernel's host tables (`mc_tables`, `obmc_tables`) on the card:
+    {"buf": the buffer, in one copy that does not wait where the host
+    tensor is pinned, "layout", "n_tiles"}."""
+    return {"buf": tabs["host"].to(dev, non_blocking=True),
+            "layout": tabs["layout"], "n_tiles": tabs["n_tiles"]}
+
+
+def _launch(fn, planes, resid, refs, tabs, table, bd):
     dev = planes[0].device
+    buf = tabs["buf"]
+    if buf.device != dev or buf.dtype != torch.int32 \
+            or not buf.is_contiguous():
+        raise ValueError(f"tables: want a contiguous int32 buffer on {dev}")
     args = _frame_args(planes, resid, refs)
+    layout = (ctypes.c_int * len(tabs["layout"]))(*tabs["layout"])
     with torch.cuda.device(dev):
-        rc = _lib().inter_mc_launch(
-            len(planes), *args, tabs["tiles"].data_ptr(),
-            tabs["tiles"].shape[0], tabs["singles"].data_ptr(),
-            tabs["pairs"].data_ptr(), tabs["warps"].data_ptr(),
-            tabs["masks"].data_ptr(),
-            convert.tables(dev)["warped_filter"].data_ptr(), bd,
-            torch.cuda.current_stream(dev).cuda_stream)
+        return fn(len(planes), *args, buf.data_ptr(), layout,
+                  convert.tables(dev)[table].data_ptr(), bd,
+                  torch.cuda.current_stream(dev).cuda_stream)
+
+
+def mc_launch(planes: List[torch.Tensor], resid: Sequence[torch.Tensor],
+              refs: Sequence[Sequence[torch.Tensor]], tabs: Dict,
+              bd: int) -> List[torch.Tensor]:
+    """Launch kernel 6a once on CUDA tensors, in place: `tabs` is
+    `upload(mc_tables(plan), device)` with at least one work index,
+    other arguments as `mc_units`.  Raises if the launch fails."""
+    rc = _launch(_lib().inter_mc_launch, planes, resid, refs, tabs,
+                 "warped_filter", bd)
     if rc != 0:
         raise RuntimeError(f"inter_mc launch failed: cudaError {rc}")
     mc_launch.launches += 1
@@ -388,19 +578,13 @@ mc_launch.launches = 0
 
 
 def obmc_launch(planes: List[torch.Tensor], resid: Sequence[torch.Tensor],
-                refs: Sequence[Sequence[torch.Tensor]],
-                tab: Dict[str, torch.Tensor], bd: int) -> List[torch.Tensor]:
-    """Launch kernel 6b once on CUDA tensors, for one pass of
-    `obmc_tables` ("pass" an int, "tiles" and "units" on the planes'
-    device), in place.  Raises if the launch fails."""
-    dev = planes[0].device
-    args = _frame_args(planes, resid, refs)
-    with torch.cuda.device(dev):
-        rc = _lib().obmc_launch(
-            tab["pass"], len(planes), *args, tab["tiles"].data_ptr(),
-            tab["tiles"].shape[0], tab["units"].data_ptr(),
-            convert.tables(dev)["obmc_masks"].data_ptr(), bd,
-            torch.cuda.current_stream(dev).cuda_stream)
+                refs: Sequence[Sequence[torch.Tensor]], tabs: Dict,
+                bd: int) -> List[torch.Tensor]:
+    """Launch kernel 6b once on CUDA tensors, in place: `tabs` is
+    `upload(obmc_tables(plan), device)` with at least one work index.
+    Raises if the launch fails."""
+    rc = _launch(_lib().obmc_launch, planes, resid, refs, tabs,
+                 "obmc_masks", bd)
     if rc != 0:
         raise RuntimeError(f"obmc launch failed: cudaError {rc}")
     obmc_launch.launches += 1
@@ -408,6 +592,14 @@ def obmc_launch(planes: List[torch.Tensor], resid: Sequence[torch.Tensor],
 
 
 obmc_launch.launches = 0
+
+
+def _on_card(planes) -> bool:
+    """False for CPU tensors, True for CUDA tensors; others raise."""
+    dev = planes[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev.type == "cuda"
 
 
 def mc_units(planes: List[torch.Tensor], resid: Sequence[torch.Tensor],
@@ -418,33 +610,26 @@ def mc_units(planes: List[torch.Tensor], resid: Sequence[torch.Tensor],
     slots' uint8 planes in the plan's order.  CPU tensors take
     `mc_units_plain`; CUDA tensors launch kernel 6a once (`mc_launch`,
     when the plan has units), or raise."""
-    dev = planes[0].device
-    if dev.type == "cpu":
+    if not _on_card(planes):
         return mc_units_plain(planes, resid, refs, plan, bd)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    tabs = mc_tables(plan)
-    if tabs["tiles"].shape[0] == 0:
+    tabs = mc_tables(plan, pinned=True)
+    if tabs["n_tiles"] == 0:
         return planes
-    return mc_launch(planes, resid, refs,
-                     convert.from_reference(tabs, dev), bd)
+    return mc_launch(planes, resid, refs, upload(tabs, planes[0].device), bd)
 
 
 def obmc(planes: List[torch.Tensor], resid: Sequence[torch.Tensor],
          refs: Sequence[Sequence[torch.Tensor]], plan: Dict,
          bd: int) -> List[torch.Tensor]:
-    """The OBMC passes of a frame, in place, arguments as `mc_units`.
-    CPU tensors take `obmc_plain`; CUDA tensors launch kernel 6b
-    (`obmc_launch`) once for each pass that has units, in stream order
-    (each pass reads what the one before wrote), or raise."""
-    dev = planes[0].device
-    if dev.type == "cpu":
+    """The OBMC of a frame, in place, arguments as `mc_units`.  CPU
+    tensors take `obmc_plain`; CUDA tensors launch kernel 6b once
+    (`obmc_launch`, when the plan has OBMC blocks), or raise."""
+    if not _on_card(planes):
         return obmc_plain(planes, resid, refs, plan, bd)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    for tab in obmc_tables(plan):
-        obmc_launch(planes, resid, refs, {
-            "pass": tab["pass"],
-            **convert.from_reference({k: tab[k] for k in ("tiles", "units")},
-                                     dev)}, bd)
-    return planes
+    if not plan["obmc_resid"]:
+        if plan["obmc_above"] or plan["obmc_left"]:
+            raise ValueError("OBMC overlays without an OBMC block")
+        return planes
+    tabs = obmc_tables(plan, pinned=True)
+    return obmc_launch(planes, resid, refs, upload(tabs, planes[0].device),
+                       bd)

@@ -13,6 +13,9 @@
   masked compound, OBMC, warp and interintra;
 - `InterRecon.run` against `DeviceInterRecon.run` on one frame;
 - the CUDA kernels against their plain versions (needs the card).
+
+The host side of the MC kernels (bucket tables, work indices, the OBMC
+grouping) is held in test_torch_mc_tables.py.
 """
 
 import os
@@ -143,7 +146,7 @@ def test_plain_mc_vs_jax(kind):
 def test_mc_units_plain_keeps_unit_order():
     """The frame form runs the buckets as the reference does: equal to
     the per-bucket plain functions called in the plan's order, and the
-    host tile tables cover every unit pixel exactly once."""
+    kernel's work indices cover every unit pixel exactly once."""
     prog = random_mc_program(12)
     planes = [torch.zeros(d, dtype=torch.int32) for d in prog["dims"]]
     resid = [torch.from_numpy(r) for r in prog["resid"]]
@@ -168,7 +171,8 @@ def test_mc_units_plain_keeps_unit_order():
     for p, (a, b) in enumerate(zip(got, inter_mc.obmc_plain(
             want, resid, refs, plan, 8))):
         _assert_equal(a.numpy(), b.numpy(), f"plane {p}")
-    # the tiles cover each unit's rect exactly once, overhang included
+    # the work indices cover each unit's rect exactly once, overhang
+    # included
     tabs = inter_mc.mc_tables(plan)
     shape = [(h + 128, w + 128) for h, w in prog["dims"]]
     cover = [np.zeros(d, np.int32) for d in shape]
@@ -176,11 +180,15 @@ def test_mc_units_plain_keeps_unit_order():
     src = {inter_mc.K_SINGLE: (tabs["singles"], MP.S_X, MP.S_Y),
            inter_mc.K_PAIR: (tabs["pairs"], MP.P_X, MP.P_Y),
            inter_mc.K_WARP: (tabs["warps"], MP.W_X, MP.W_Y)}
-    for kind, p, u, w, h, ox, oy, _moff in tabs["tiles"]:
+    it = inter_mc.work_items(tabs["buckets"], tabs["n_tiles"],
+                             np.arange(tabs["n_tiles"]))
+    for b, u, ox, oy, tw, th in zip(it["bucket"], it["unit"], it["ox"],
+                                    it["oy"], it["tw"], it["th"]):
+        kind, p, w, h = tabs["buckets"][b, :4]
         t, xc, yc = src[kind]
         x, y = t[u, xc] + ox, t[u, yc] + oy
-        cover[p][y:y + min(inter_mc.TILE, h - oy),
-                 x:x + min(inter_mc.TILE, w - ox)] += 1
+        assert tw <= inter_mc.TILE and tw * th <= 256
+        cover[p][y:y + th, x:x + tw] += 1
         if ox == oy == 0:
             want[p][t[u, yc]:t[u, yc] + h, t[u, xc]:t[u, xc] + w] += 1
     for p in range(3):

@@ -86,6 +86,15 @@ def _port(path):
                                                      device="cpu"))
 
 
+def _reference_native(path, monkeypatch):
+    """Every frame of the reference's native C path, frame by frame: its
+    frame-parallel branch (the default for streams with inter frames) is
+    not a steady yardstick."""
+    monkeypatch.setenv("EASYAV1_PIPE", "native")
+    monkeypatch.setenv("EASYAV1_FRAME_PARALLEL", "0")
+    return _decode(lambda: ref_api.EasyAV1(str(path)))
+
+
 def _assert_frames_equal(got, want):
     assert len(got) == len(want) > 0
     for k, (fa, fb) in enumerate(zip(got, want)):
@@ -122,8 +131,7 @@ def test_gop4_key_frame_then_counted_fallbacks(monkeypatch):
     path = _gop4_fixture()
     got = _port(path)
     assert easyav1_tpu_torch.stats == {"frames": 4, "fallbacks": 0}
-    monkeypatch.setenv("EASYAV1_PIPE", "native")
-    _assert_frames_equal(got, _decode(lambda: ref_api.EasyAV1(str(path))))
+    _assert_frames_equal(got, _reference_native(path, monkeypatch))
 
 
 @pytest.mark.parametrize("declined", [None, 2])
@@ -164,8 +172,7 @@ def test_gop4_references_cross_between_device_and_c(declined, monkeypatch):
         assert made == {"host": 0, "upload": 0}
     else:
         assert made["host"] > 0 and made["upload"] > 0, made
-    monkeypatch.setenv("EASYAV1_PIPE", "native")
-    _assert_frames_equal(got, _decode(lambda: ref_api.EasyAV1(str(path))))
+    _assert_frames_equal(got, _reference_native(path, monkeypatch))
 
 
 @pytest.mark.parametrize("tag,kv,fallbacks", [
@@ -182,8 +189,7 @@ def test_formats_run_or_decline_exactly(tag, kv, fallbacks, monkeypatch):
     path = fixture(tag, **BASE, gop=1, **kv)
     got = _port(path)
     assert easyav1_tpu_torch.stats == {"frames": 4, "fallbacks": fallbacks}
-    monkeypatch.setenv("EASYAV1_PIPE", "native")
-    _assert_frames_equal(got, _decode(lambda: ref_api.EasyAV1(str(path))))
+    _assert_frames_equal(got, _reference_native(path, monkeypatch))
 
 
 def _synthetic_frame(tu, monkeypatch):
