@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py
 
-Builds the port's three libraries from the checkout at first use, all at
+Builds the port's four libraries from the checkout at first use, all at
 once: the C decoder (gcc, `easyav1_tpu_torch/native`) and the CUDA
-kernels (nvcc, `easyav1_tpu_torch/csrc/intra_strip.cu` and
-`csrc/inter_mc.cu`, whose ptxas reports it prints).  Then:
+kernels (nvcc, `easyav1_tpu_torch/csrc/intra_strip.cu`,
+`csrc/inter_mc.cu` and `csrc/frame_hash.cu`, whose ptxas reports it
+prints).  Then:
 
 1. holds every kernel against its plain torch version on the card,
    exactly: the strip kernel on seeded random unit programs of every
@@ -19,7 +20,11 @@ kernels (nvcc, `easyav1_tpu_torch/csrc/intra_strip.cu` and
    unit kind at 1080p and at an odd size (reference pitches that are no
    multiple of 4), 6a on the 1080p inter frame, 20 runs of 6a on the 4K
    inter frame and 20 runs of 6b on a random 1080p program, each
-   bit-equal to the first (a race shows here);
+   bit-equal to the first (a race shows here); the frame hash kernel on
+   seeded uint8 planes of odd sizes, offsets and pitches against its
+   plain version and `api.frame_hash`; and the torch-ops stages of this
+   slice (superres upscale, loop restoration, film grain) on the card
+   against the same functions on the CPU, on seeded 1080p inputs;
 2. drives the port's main path through `easyav1_tpu_torch.EasyAV1(path,
    device="cuda")`, each stream with the launch counts set to 0 just
    before it and read just after: all 30 frames of
@@ -27,17 +32,30 @@ kernels (nvcc, `easyav1_tpu_torch/csrc/intra_strip.cu` and
    bench_av1_inter_1920x1080_60.webm, all 24 frames of
    bench_av1_4k_3840x2160_24.webm, and the 8 frames of
    tests/data/smoke/inter_modes_96x96.webm (compound, warps and OBMC,
-   which the bench streams lack); every frame's hash equal to the port's
-   native C session's, no fallback, and the launches as expected: one
-   strip launch a frame, one of 6a an inter frame, one of 6b a frame
-   with OBMC blocks (122, 89 and 7 over the four streams);
+   which the bench streams lack), and the streams with loop
+   restoration, film grain and superres: the 8 frames of
+   tests/data/bench/bench_av1_lr_grain_1920x1080_8.webm and the five
+   small streams of tests/data/smoke/, and its two libaom streams with
+   wedge and diffwtd compound blocks (STREAMS below); every frame's
+   hash equal to the port's native C session's, no fallback, and the
+   launches as expected: one strip launch a frame, one of 6a an inter
+   frame, one of 6b a frame with OBMC blocks.  Then `decode_resident`
+   on every stream (at most RESIDENT_FRAMES frames of each): its device
+   hashes equal `api.frame_hash` of the same frames pulled through the
+   API, no plane is downloaded, and the hash kernel launches once a
+   frame;
 3. times, in this run (CUDA events for kernels, the host clock around
    synchronised work for stages): the strip kernel under the wavefront
    and the sequential schedule at 1080p and 4K, 6a on a 1080p and a 4K
    inter frame, 6b on a random OBMC program, their plain versions, the
    strip kernel on a 1080p inter frame's pred units beside its bound,
    deblocking + CDEF, the stages of the 1080p inter stream's frames, and
-   the port's fps beside the native C session's on both 1080p streams.
+   the port's fps beside the native C session's on both 1080p streams;
+   the hash kernel on a 1080p frame beside its plain version and its
+   byte bound; superres, loop restoration and film grain on 1080p
+   planes; the stages of the 1080p loop-restoration and grain stream,
+   and on it the port's fps, the native C session's and the resident
+   decode's.
 
 The smoke imports only torch and `easyav1_tpu_torch`, and checks that
 neither jax nor easyav1_tpu was imported.  Every phase raises on
@@ -51,6 +69,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -63,7 +82,9 @@ from easyav1_tpu_torch.native.pipe import first_frame_inputs
 from easyav1_tpu_torch.unit_programs import (
     program_frame, random_ibc_program, random_interintra_program,
     random_mc_program, random_program)
-from easyav1_tpu_torch.video.av1.recon import inter_mc, intra_strip
+from easyav1_tpu_torch.video.av1.recon import (fg_torch, inter_mc, intra_strip,
+                                               lr_torch, resident, sr_torch)
+from easyav1_tpu_torch.video.av1.headers import FilmGrainParams
 from easyav1_tpu_torch.video.av1.recon.mc_plan import (
     P_MODE, P_PRED0, P_PRED1, P_VALID, P_X, P_Y, S_FH, S_FV, S_IX, S_IY,
     S_NORES, S_SLOT, S_VALID, S_X, S_Y, W_IX4, W_IY4, W_SLOT, W_VALID, W_X,
@@ -79,7 +100,9 @@ BENCH = os.path.join(REPO, "tests", "data", "bench")
 INTRA_1080 = os.path.join(BENCH, "bench_av1_intra_1920x1080_30.webm")
 INTER_1080 = os.path.join(BENCH, "bench_av1_inter_1920x1080_60.webm")
 KEY_4K = os.path.join(BENCH, "bench_av1_4k_3840x2160_24.webm")
-MODES = os.path.join(REPO, "tests", "data", "smoke", "inter_modes_96x96.webm")
+SMOKE = os.path.join(REPO, "tests", "data", "smoke")
+MODES = os.path.join(SMOKE, "inter_modes_96x96.webm")
+LR_GRAIN_1080 = os.path.join(BENCH, "bench_av1_lr_grain_1920x1080_8.webm")
 SEEDS = [301, 304, 305, 317, 310, 311, 312, 313]
 SCAN_SEEDS = [301, 303, 302, 310, 311, 319]
 # (seed, width, height): 1080p, and a size whose reference pitches are
@@ -88,7 +111,9 @@ MC_PROGRAMS = [(21, 1920, 1080), (22, 1920, 1080), (23, 1920, 1080),
                (24, 1278, 718)]
 # the kernels' launch counters, by the name of the kernels line
 COUNTERS = {"intra_strip": intra_strip.strip_exec_frame,
-            "inter_mc": inter_mc.mc_launch, "obmc": inter_mc.obmc_launch}
+            "inter_mc": inter_mc.mc_launch, "obmc": inter_mc.obmc_launch,
+            "frame_hash": resident.frame_hash_device}
+KERNEL_SOURCES = ("intra_strip", "inter_mc", "frame_hash")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 INT32_OPS_PER_S = 33.5e12   # half the 67 TFLOP/s of float32 outside tensor cores
 
@@ -99,15 +124,16 @@ def check(cond, what):
 
 
 def build():
-    """The three libraries, built at once; prints ptxas's reports."""
+    """The four libraries, built at once; prints ptxas's reports."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as ex:
-        jobs = [ex.submit(native._load), ex.submit(_build.build, "intra_strip"),
-                ex.submit(_build.build, "inter_mc")]
+    with ThreadPoolExecutor(1 + len(KERNEL_SOURCES)) as ex:
+        jobs = [ex.submit(native._load)] + [ex.submit(_build.build, name)
+                                            for name in KERNEL_SOURCES]
         for j in jobs:
             j.result()
-    print(f"build (gcc and two nvcc at once) {time.perf_counter() - t0:.3f} s")
-    for name in ("intra_strip", "inter_mc"):
+    print(f"build (gcc and {len(KERNEL_SOURCES)} nvcc at once) "
+          f"{time.perf_counter() - t0:.3f} s")
+    for name in KERNEL_SOURCES:
         _build.load(name)
         for line in (_build.BUILD / f"{name}.log").read_text().splitlines():
             if "spill" in line or "ptxas info" in line and (
@@ -430,18 +456,191 @@ def check_inter_frames(dev):
     return err, e, caps
 
 
-# name, path, frames, and the launches expected: the strip kernel once a
-# frame, 6a once an inter frame, 6b once a frame that has OBMC blocks
+HASH_DIMS = [[(1080, 1920), (540, 960), (540, 960)],     # 1080p 4:2:0
+             [(67, 131), (34, 66), (34, 66)], [(1, 1)], [(3, 1031)],
+             [(135, 241), (135, 241), (135, 241)]]
+
+
+def check_hash(dev):
+    """Phase 1: the frame hash kernel against its plain version and
+    against `api.frame_hash` of the same planes on the host, on seeded
+    uint8 planes: whole tensors, and views that start off a 4-byte
+    boundary with pitched rows.  Returns the largest difference between
+    the kernel's hash and the plain version's (tolerance 0)."""
+    err = 0
+    rng = np.random.default_rng(77)
+    for dims in HASH_DIMS:
+        host = [rng.integers(0, 256, d).astype(np.uint8) for d in dims]
+        planes = [torch.from_numpy(p).to(dev) for p in host]
+        cases = [("whole", planes)]
+        if dims[0][0] > 2 and dims[0][1] > 8:
+            cases.append(("view", [t[1:, 3:-2] for t in planes]))
+        for what, pl in cases:
+            got = resident.hash_value(resident.frame_hash_device(pl))
+            torch.cuda.synchronize()
+            plain = resident.hash_value(resident.frame_hash_plain(pl))
+            want = frame_hash([t.cpu().numpy() for t in pl])
+            print(f"frame hash {dims[0][1]}x{dims[0][0]} x{len(dims)} {what}: "
+                  f"kernel {got:#010x}, plain {plain:#010x}, host "
+                  f"{want:#010x}")
+            check(plain == want, "plain hash differs from api.frame_hash")
+            err = max(err, abs(got - plain))
+    first = resident.hash_value(resident.frame_hash_device(planes))
+    for k in range(20):
+        check(resident.hash_value(resident.frame_hash_device(planes))
+              == first, f"hash run {k} differs from the first")
+    check(err == 0, f"hash kernel vs plain differ by {err} (tolerance 0)")
+    return err
+
+
+def lr_case(w, h, seed):
+    """A seeded loop-restoration frame at w x h, 4:2:0, 8 bits: (hdr,
+    seq, plan, planes, deblocked) with switchable luma (Wiener,
+    SGR and absent units interleaved), Wiener U and SGR
+    V, 64-pixel units, in mi-padded int32 planes."""
+    rng = np.random.default_rng(seed)
+    plan = SimpleNamespace(lr_type={}, lr_wiener={}, lr_sgr={})
+
+    def units(plane, pw, ph, kinds):
+        for urow in range(max((ph + 32) // 64, 1)):
+            for ucol in range(max((pw + 32) // 64, 1)):
+                kind = kinds[(urow + ucol) % len(kinds)]
+                key = (plane, urow, ucol)
+                if kind:
+                    plan.lr_type[key] = kind
+                if kind == 2:
+                    plan.lr_wiener[key] = [
+                        [0 if plane else int(rng.integers(-5, 11)),
+                         int(rng.integers(-23, 9)), int(rng.integers(-17, 47))]
+                        for _ in range(2)]
+                elif kind == 3:
+                    plan.lr_sgr[key] = (int(rng.integers(0, 16)),
+                                        int(rng.integers(-96, 32)),
+                                        int(rng.integers(-32, 96)))
+
+    cw, ch = (w + 1) >> 1, (h + 1) >> 1
+    units(0, w, h, (2, 3, 0))
+    units(1, cw, ch, (2,))
+    units(2, cw, ch, (3, 0))
+    ns = SimpleNamespace
+    hdr = ns(upscaled_width=w, frame_height=h, lr=ns(
+        uses_lr=True, frame_restoration_type=[1, 2, 3],
+        loop_restoration_size=[64, 64, 64]))
+    seq = ns(color=ns(subsampling_x=1, subsampling_y=1, num_planes=3,
+                      mono_chrome=False, bitdepth=8))
+    ah, aw = (h + 7) & ~7, (w + 7) & ~7
+    planes = [rng.integers(0, 256, d).astype(np.int32)
+              for d in ((ah, aw), (ah >> 1, aw >> 1), (ah >> 1, aw >> 1))]
+    debl = [np.clip(p + rng.integers(-2, 3, p.shape), 0, 255).astype(np.int32)
+            for p in planes]
+    return hdr, seq, plan, planes, debl
+
+
+def grain_case(seed):
+    """Film grain parameters shaped like libaom's denoiser's: several
+    luma points, lag 3, both chroma planes, overlap."""
+    rng = np.random.default_rng(seed)
+    return FilmGrainParams(
+        apply_grain=True, grain_seed=43962, num_y_points=6,
+        point_y_value=[0, 40, 90, 140, 200, 255],
+        point_y_scaling=[30, 45, 60, 55, 40, 20], num_cb_points=2,
+        point_cb_value=[0, 255], point_cb_scaling=[20, 28], num_cr_points=2,
+        point_cr_value=[0, 255], point_cr_scaling=[18, 30], grain_scaling=9,
+        ar_coeff_lag=3, ar_coeffs_y=rng.integers(-20, 20, 24).tolist(),
+        ar_coeffs_cb=rng.integers(-20, 20, 25).tolist(),
+        ar_coeffs_cr=rng.integers(-20, 20, 25).tolist(), ar_coeff_shift=7,
+        cb_mult=128, cb_luma_mult=192, cb_offset=256, cr_mult=134,
+        cr_luma_mult=190, cr_offset=260, overlap_flag=True)
+
+
+def check_torch_stages(dev):
+    """Phase 1: the stages this slice ports as exact torch ops, on the
+    card against the same functions on the CPU, tolerance 0, on seeded
+    1080p inputs: the superres upscale (luma 1280 -> 1920 and its
+    chroma, and an unaligned coded width), loop restoration over all
+    three planes, film grain over all three planes.  Returns the inputs
+    on the card, for the timings."""
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(5)
+    sr = []
+    for src_w, dst_w, aw in ((1280, 1920, 1280), (640, 960, 640),
+                             (1181, 1920, 1184)):
+        plane = torch.from_numpy(
+            rng.integers(0, 256, (1080, aw)).astype(np.int32))
+        got = sr_torch.upscale_plane(plane.to(dev), src_w, dst_w, 8)
+        want = sr_torch.upscale_plane(plane, src_w, dst_w, 8)
+        e = int((got.cpu() - want).abs().max())
+        print(f"superres {src_w} -> {dst_w} (stored {aw}) x 1080 rows: card "
+              f"vs CPU max_abs_err {e}")
+        check(e == 0, "sr_torch differs between the card and the CPU")
+        sr.append((plane.to(dev), src_w, dst_w))
+    hdr, seq, plan, planes, debl = lr_case(1920, 1080, 6)
+    lr = lr_torch.LoopRestoration(hdr, seq, plan, 8)
+
+    def run_lr(device):
+        return lr.apply([torch.from_numpy(p).to(device) for p in planes],
+                        [torch.from_numpy(p).to(device) for p in debl])
+
+    got, want = run_lr(dev), run_lr(cpu)
+    e = max_err([g.cpu() for g in got], want)
+    changed = sum(int((w != torch.from_numpy(p)).sum())
+                  for w, p in zip(want, planes))
+    print(f"loop restoration 1920x1080, {len(plan.lr_type)} units "
+          f"({len(plan.lr_wiener)} Wiener, {len(plan.lr_sgr)} SGR), "
+          f"{changed} pixels changed: card vs CPU max_abs_err {e}")
+    check(e == 0 and changed > 0, "lr_torch differs between card and CPU")
+    fgp = grain_case(7)
+    u8 = [torch.from_numpy(rng.integers(0, 256, d).astype(np.uint8))
+          for d in ((1080, 1920), (540, 960), (540, 960))]
+    got = fg_torch.FilmGrain(fgp, seq, 8, dev).apply([t.to(dev) for t in u8])
+    want = fg_torch.FilmGrain(fgp, seq, 8, cpu).apply(u8)
+    e = max_err([g.cpu().int() for g in got], [w.int() for w in want])
+    changed = sum(int((w != t).sum()) for w, t in zip(want, u8))
+    print(f"film grain 1920x1080, {changed} pixels changed: card vs CPU "
+          f"max_abs_err {e}")
+    check(e == 0 and changed > 0, "fg_torch differs between card and CPU")
+    return {"sr": sr, "lr": (lr, [torch.from_numpy(p).to(dev) for p in planes],
+                             [torch.from_numpy(p).to(dev) for p in debl]),
+            "fg": (fgp, seq, [t.to(dev) for t in u8])}
+
+
+# name, path, frames shown, and the launches expected: the strip kernel
+# once a decoded frame, 6a once an inter frame, 6b once a frame that has
+# OBMC blocks
 STREAMS = [("1080p intra", INTRA_1080, 30, (30, 0, 0)),
            ("1080p inter", INTER_1080, 60, (60, 59, 0)),
            ("4K", KEY_4K, 24, (24, 23, 0)),
-           ("inter modes 96x96", MODES, 8, (8, 7, 7))]
+           ("inter modes 96x96", MODES, 8, (8, 7, 7)),
+           # loop restoration on every frame (Wiener and SGR),
+           # deblocking on the inter frames, film grain on every frame
+           ("1080p LR + grain", LR_GRAIN_1080, 8, (8, 7, 0)),
+           ("LR mixed units 320x200",
+            os.path.join(SMOKE, "lreal_mix_e8bf32ba.webm"), 1, (1, 0, 0)),
+           ("LR inter 160x128",
+            os.path.join(SMOKE, "lreal_interlr_863022fc.webm"), 4, (4, 3, 0)),
+           ("film grain 160x128",
+            os.path.join(SMOKE, "fgreal_7cdd830f.webm"), 2, (2, 0, 0)),
+           ("superres + LR 88x64",
+            os.path.join(SMOKE, "superres_lr_88x64.webm"), 3, (3, 0, 0)),
+           ("superres + LR 1920x128",
+            os.path.join(SMOKE, "superres_lr_1920x128.webm"), 3, (3, 0, 0)),
+           # libaom streams whose pairs carry wedge and diffwtd masks (22
+           # diffwtd blocks and 1 wedge; 4 and 2, and one hidden frame)
+           ("masked compound 320x192",
+            os.path.join(SMOKE, "comp_masked_320x192.webm"), 10, (10, 9, 0)),
+           ("wedge compound 320x192",
+            os.path.join(SMOKE, "comp_wedge_320x192.webm"), 12, (13, 12, 0))]
+# the resident decode runs at most this many frames of a stream
+RESIDENT_FRAMES = 12
 
 
 def main_path():
     """Phase 2: the port's main path, hash-equal to native C, each
     stream with the launch counts set to 0 just before it and read just
-    after.  Returns the launches of each kernel over all streams."""
+    after; then the resident decode of the same stream, its device
+    hashes against those of the frames pulled through the API, with the
+    hash kernel's launches counted.  Returns the launches of each
+    kernel over all streams."""
     total = dict.fromkeys(COUNTERS, 0)
     for name, path, n, want in STREAMS:
         easyav1_tpu_torch.stats.update(frames=0, fallbacks=0)
@@ -458,10 +657,32 @@ def main_path():
               f"{sum(a != b for a, b in zip(port, native_h))} differ")
         check(stats["fallbacks"] == 0 and stats["frames"] >= n,
               f"{name} stats {stats}")
-        check(stats["frames"] == n and tuple(c.values()) == want,
+        # a hidden frame is decoded and not shown: the strip kernel's
+        # launches count the decoded frames
+        check(stats["frames"] == want[0]
+              and tuple(c.values()) == want + (0,),
               f"{name}: launches {c}, want {want} (strip, 6a, 6b)")
         for k in total:
             total[k] += c[k]
+        easyav1_tpu_torch.stats.update(frames=0, fallbacks=0)
+        reset_counts()
+        m = min(n, RESIDENT_FRAMES)
+        got_n, wall, hashes, frames = resident.decode_resident(
+            path, "cuda", max_frames=m)
+        c = counts()
+        lazy = [f.data.materialised for f in frames]
+        print(f"resident {name}: {got_n} frames in {wall:.3f} s, "
+              f"hash launches {c['frame_hash']}, planes downloaded "
+              f"{sum(lazy)}, stats {dict(easyav1_tpu_torch.stats)}")
+        check(got_n == m and hashes == port[:m],
+              f"resident {name}: {got_n} frames, "
+              f"{sum(a != b for a, b in zip(hashes, port))} hashes differ")
+        check(c["frame_hash"] == m and not any(lazy)
+              and easyav1_tpu_torch.stats["fallbacks"] == 0,
+              f"resident {name}: launches {c}, downloaded {sum(lazy)}")
+        check(frame_hash(frames[-1].data) == port[m - 1],
+              f"resident {name}: the last frame's planes, pulled, differ")
+        total["frame_hash"] += c["frame_hash"]
     check(all(v > 0 for v in total.values()), f"a kernel never ran: {total}")
     return total
 
@@ -748,6 +969,90 @@ def inter_timings(caps, prog, dev):
     return out
 
 
+def hash_timings(dev):
+    """Phase 3: the hash kernel on a decoded 1080p 4:2:0 frame's uint8
+    planes, its plain version right after it (both timed back to back by
+    `cuda_ms`), and its bound: the frame's bytes read once and one word
+    written, at the HBM rate, against two multiply-adds a pixel."""
+    _, _, _, frames = resident.decode_resident(LR_GRAIN_1080, "cuda",
+                                               max_frames=1)
+    planes = frames[0].data.device_planes
+    check([tuple(p.shape) for p in planes]
+          == [(1080, 1920), (540, 960), (540, 960)], "1080p planes")
+    got = resident.hash_value(resident.frame_hash_device(planes))
+    check(got == resident.hash_value(resident.frame_hash_plain(planes))
+          == frame_hash(frames[0].data),
+          "hash of a decoded 1080p frame: kernel, plain and host differ")
+    ms = cuda_ms(lambda: resident.frame_hash_device(planes), 50)
+    plain = cuda_ms(lambda: resident.frame_hash_plain(planes), 10)
+    nbytes = sum(p.numel() for p in planes) + 4
+    bound, by = _bound(nbytes, 4 * (nbytes - 4))
+    print(f"frame hash of a 1080p frame ({nbytes / 1e6:.2f} MB): kernel "
+          f"{ms:.4f} ms, plain version {plain:.4f} ms, bound "
+          f"{bound * 1e3:.4f} us ({by})")
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by}
+
+
+def stage_timings(inp, dev):
+    """Phase 3: the torch-ops stages of this slice on the card, on the
+    seeded 1080p inputs of `check_torch_stages` (CUDA events, back to
+    back), and on the 1080p loop-restoration and grain stream the stage
+    medians, the port's fps, the native C session's and the resident
+    decode's."""
+    plane, src_w, dst_w = inp["sr"][0]
+    chroma = inp["sr"][1]
+    sr_ms = cuda_ms(lambda: (sr_torch.upscale_plane(plane, src_w, dst_w, 8),
+                             sr_torch.upscale_plane(*chroma, 8),
+                             sr_torch.upscale_plane(*chroma, 8)), 10)
+    lr, planes, debl = inp["lr"]
+    lr_ms = cuda_ms(lambda: lr.apply(planes, debl), 5)
+    fgp, seq, u8 = inp["fg"]
+    t0 = time.perf_counter()
+    fg = fg_torch.FilmGrain(fgp, seq, 8, dev)
+    torch.cuda.synchronize()
+    fg_host_ms = (time.perf_counter() - t0) * 1e3
+    fg_ms = cuda_ms(lambda: fg.apply(u8), 5)
+    print(f"torch-ops stages on seeded 1080p 4:2:0 planes (CUDA events): "
+          f"superres 1280 -> 1920 of three planes {sr_ms:.3f} ms, loop "
+          f"restoration of three planes {lr_ms:.3f} ms, film grain of three "
+          f"planes {fg_ms:.3f} ms after {fg_host_ms:.3f} ms of host "
+          f"templates and LUTs (host clock)")
+    pipe.stage_log = []
+    try:
+        decode_hashes(lambda: easyav1_tpu_torch.EasyAV1(LR_GRAIN_1080,
+                                                        device="cuda"))
+        log = [d for d in pipe.stage_log if "mc" in d]
+        key = pipe.stage_log[0]
+    finally:
+        pipe.stage_log = None
+    stages = ("entropy", "plan", "prepare", "upload", "mc", "intra",
+              "lf_cdef", "sr", "lr", "tail", "grain")
+    med = {k: sorted(d.get(k, 0.0) for d in log)[len(log) // 2] * 1e3
+           for k in stages}
+    print("1080p LR + grain stream stages (ms, host clock, device "
+          "synchronised at each stage's end), key frame: "
+          + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in key.items()))
+    print(f"  median over its {len(log)} inter frames: "
+          + ", ".join(f"{k} {med[k]:.3f}" for k in stages)
+          + f"; total {sum(med.values()):.3f}")
+    pipe.stage_log = []
+    try:
+        decode_hashes(lambda: easyav1_tpu_torch.EasyAV1(
+            os.path.join(SMOKE, "superres_lr_1920x128.webm"), device="cuda"))
+        log = list(pipe.stage_log)
+    finally:
+        pipe.stage_log = None
+    print("superres + LR 1920x128 key frames, stages of the last (ms): "
+          + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in log[-1].items()))
+    _, port_s = decode_hashes(
+        lambda: easyav1_tpu_torch.EasyAV1(LR_GRAIN_1080, device="cuda"))
+    _, native_s = decode_hashes(lambda: native_session(LR_GRAIN_1080))
+    _, res_s, _, _ = resident.decode_resident(LR_GRAIN_1080, "cuda")
+    print(f"1080p LR + grain 8 frames: port {8 / port_s:.3f} fps, resident "
+          f"decode {8 / res_s:.3f} fps, native C session "
+          f"{8 / native_s:.3f} fps (this host)")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -765,9 +1070,13 @@ def main():
     err_mc, err_obmc, prog = check_mc(dev)
     err_frame, err_strip, caps = check_inter_frames(dev)
     err = max(err, err_strip)
+    err_hash = check_hash(dev)
+    stage_inputs = check_torch_stages(dev)
     launches = main_path()
     t = timings(frames, dev)
     ti = inter_timings(caps, prog, dev)
+    th = hash_timings(dev)
+    stage_timings(stage_inputs, dev)
     print(json.dumps({"kernels": [{
         "name": "intra_strip", "route": "cuda",
         "source": "easyav1_tpu_torch/csrc/intra_strip.cu",
@@ -791,7 +1100,14 @@ def main():
         "launches": launches["obmc"], "max_abs_err": err_obmc,
         "ms": ti["obmc"]["ms"], "plain_ms": ti["obmc"]["plain_ms"],
         "bound_ms": ti["obmc"]["bound_ms"],
-        "bound_by": ti["obmc"]["bound_by"], "library_ms": None}]}))
+        "bound_by": ti["obmc"]["bound_by"], "library_ms": None}, {
+        "name": "frame_hash", "route": "cuda",
+        "source": "easyav1_tpu_torch/csrc/frame_hash.cu",
+        "replaces": "easyav1_tpu/video/av1/recon/resident.py:31",
+        "launches": launches["frame_hash"], "max_abs_err": err_hash,
+        "ms": th["ms"], "plain_ms": th["plain_ms"],
+        "bound_ms": th["bound_ms"], "bound_by": th["bound_by"],
+        "library_ms": None}]}))
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.split(".")[0] == "easyav1_tpu")
     check(not leaked, f"imported {leaked}")

@@ -7,7 +7,9 @@ timestamp seeks, frame/sample pull + push callbacks, settings
 live-update, status taxonomy) with an explicit `device` for its AV1
 video track: "cuda" runs the port's CUDA kernels and raises without a
 card, "cpu" runs their plain torch versions, and None decodes every
-frame on the native C path.  `native_session` is that C path, the
+frame on the native C path.  With `resident=True` the frames of a device
+session stay on the device (`frame.data.device_planes`) until a consumer
+indexes `frame.data`.  `native_session` is that C path, the
 yardstick the port is held to, and `frame_hash` the frame hash both are
 compared by.
 
@@ -59,10 +61,11 @@ class VideoBackend:
         return 0.0
 
 
-def _make_video_backend(track: W.TrackInfo, device, threads: int = 0):
+def _make_video_backend(track: W.TrackInfo, device, threads: int = 0,
+                        resident: bool = False):
     if track.codec_id == W.CODEC_AV1:
         from easyav1_tpu_torch.video.av1.backend import AV1Backend
-        return AV1Backend(track, device, threads=threads)
+        return AV1Backend(track, device, threads=threads, resident=resident)
     return None
 
 
@@ -93,8 +96,12 @@ class EasyAV1:
 
     def __init__(self, source, settings: Optional[EasyAV1Settings] = None,
                  close_handle_on_destroy: Optional[bool] = None,
-                 device="cuda"):
+                 device="cuda", resident: bool = False):
         self.device = resolve_device(device)
+        # frames stay on the device: `frame.data` downloads a frame's
+        # planes when first indexed, `frame.data.device_planes` are the
+        # uint8 tensors (see recon/resident.py)
+        self.resident = bool(resident) and self.device is not None
         self.settings = settings.copy() if settings else default_settings()
         if close_handle_on_destroy is not None:
             self.settings.close_handle_on_destroy = close_handle_on_destroy
@@ -181,7 +188,8 @@ class EasyAV1:
         if s.enable_video and s.video_track < len(videos):
             track = videos[s.video_track]
             backend = _make_video_backend(track, self.device,
-                                          self.settings.video_threads)
+                                          self.settings.video_threads,
+                                          self.resident)
             if backend is None:
                 self.log.warning(
                     f"unsupported video codec {track.codec_id!r}; "

@@ -74,6 +74,7 @@ class _FrameParams(ctypes.Structure):
         ("frame_height", ctypes.c_int32),
         ("use_superres", ctypes.c_int32),
         ("downscaled_width", ctypes.c_int32),
+        ("superres_denom", ctypes.c_int32),
         ("use_tpl", ctypes.c_int32),
         ("w8", ctypes.c_int32), ("h8", ctypes.c_int32),
         ("tpl_mv", ctypes.c_void_p), ("tpl_off", ctypes.c_void_p),
@@ -473,6 +474,7 @@ def _build_fp(hdr, seq, cdf_in: Optional[bytes], cdf_out, tpl):
     fp.frame_height = hdr.frame_height
     fp.use_superres = int(getattr(hdr, "use_superres", False))
     fp.downscaled_width = hdr.frame_width
+    fp.superres_denom = int(getattr(hdr, "superres_denom", 8))
     if tpl is not None:
         tpl_mv, tpl_off = tpl
         tpl_mv = np.ascontiguousarray(tpl_mv, np.int16)

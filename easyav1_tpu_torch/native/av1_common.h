@@ -74,6 +74,7 @@ typedef struct {
     int32_t frame_width, frame_height; /* upscaled visible dims */
     int32_t use_superres;
     int32_t downscaled_width;          /* coded width pre-upscale */
+    int32_t superres_denom;            /* SuperresDenom, 8 when off */
     int32_t use_tpl;                   /* temporal mv field present */
     int32_t w8, h8;                    /* tpl grid dims */
     const int16_t *tpl_mv;             /* [h8][w8][2] or NULL */

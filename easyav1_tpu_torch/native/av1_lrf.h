@@ -1,5 +1,5 @@
 // Copy of easyav1_tpu/native/av1_lrf.h, the JAX package's counterpart.
-/* AV1 loop restoration (Wiener + self-guided), C port of lr_ref.py
+/* AV1 loop restoration (Wiener + SGR), C port of lr_ref.py
  * (spec §7.17; dav1d looprestoration_tmpl.c / lr_apply_tmpl.c roles).
  * Included by av1_recon.c.  Operates on the visible crop of the
  * mi-aligned planes; needs the pre-CDEF deblocked planes for the
@@ -14,9 +14,14 @@ static const int16_t LR_SGR_S[16][2] = {
 
 #define LR_H_MAX 72          /* stripe rows + margins */
 #define LR_W_MAX 400         /* 1.5 * max unit (256) + margins */
+/* The stripe source rows span the whole plane and are indexed by plane
+   column, so they need the widest frame (16384, level 6.x), not a unit's
+   width.  The JAX package's copy sizes them LR_W_MAX, which is right
+   only for planes up to 400 wide. */
+#define LR_SRC_W_MAX 16384
 
 /* scratch (single-threaded decoder) */
-static int64_t lr_src[LR_H_MAX][LR_W_MAX];      /* stripe source rows */
+static int64_t lr_src[LR_H_MAX][LR_SRC_W_MAX];  /* stripe source rows */
 static int64_t lr_A[LR_H_MAX][LR_W_MAX], lr_B[LR_H_MAX][LR_W_MAX];
 static int64_t lr_ext[LR_H_MAX + 8][LR_W_MAX + 8];
 static int64_t lr_ext_sq[LR_H_MAX + 8][LR_W_MAX + 8];
@@ -211,6 +216,7 @@ static void av1_loop_restoration(const ReconParams *rp,
         int ssx = plane ? rp->ssx : 0, ssy = plane ? rp->ssy : 0;
         int vpw = (fp->frame_width + ssx) >> ssx;
         int vph = (fp->frame_height + ssy) >> ssy;
+        if (vpw > LR_SRC_W_MAX) return;
         int unit_size = fp->lr_unit_size[plane];
         int unit_rows = (vph + (unit_size >> 1)) / unit_size;
         if (unit_rows < 1) unit_rows = 1;

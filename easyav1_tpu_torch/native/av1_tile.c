@@ -1192,7 +1192,12 @@ static void read_lr(Ctx *t, int r, int c) {
         int num = 4 >> ssy, den = unit_size;
         int ur0 = (r * num + den - 1) / den;
         int ur1 = imin(unit_rows, ((r + w4) * num + den - 1) / den);
+        /* unit columns live in the upscaled frame: a superblock's range
+           scales by SuperresDenom / SUPERRES_NUM (spec 5.11.57).  The
+           JAX package's decoder counts in coded pixels, which is right
+           only for one unit column. */
         num = 4 >> ssx;
+        if (fp->use_superres) { num *= fp->superres_denom; den *= 8; }
         int uc0 = (c * num + den - 1) / den;
         int uc1 = imin(unit_cols, ((c + w4) * num + den - 1) / den);
         for (int urow = ur0; urow < ur1; urow++)

@@ -2,17 +2,20 @@
 
 The counterpart of the reference's device pipe: `_pallas_frame` for intra
 frames (its intrabc branch included), `_device_frame_inter` for inter
-frames, the LF + CDEF part of `_device_pipe_finish`, and the
-crop-and-cast tail (`easyav1_tpu/native/__init__.py:1274-1460`,
-`:1533-1551`).  The entropy decoder and the record export are the port's
-own copy of the C decoder (`native/`); the host planners are the port's
-copies of the JAX package's (`recon/records.py`, `recon/mc_plan.py`).
+frames, `_device_pipe_finish` (LF, the deblocked snapshot, CDEF, superres
+of both, loop restoration), the crop-and-cast tail and `_LazyPlanes`
+(`easyav1_tpu/native/__init__.py:1203-1242`, `:1274-1460`, `:1533-1577`),
+and film grain on the display copy (`backend.py:499-529` there).  The
+entropy decoder and the record export are the port's own copy of the C
+decoder (`native/`); the host planners are the port's copies of the JAX
+package's (`recon/records.py`, `recon/mc_plan.py`).
 
 A frame the port does not cover is declined: it is reconstructed by the
 port's C recon from the same entropy output, and counted in
 `stats["fallbacks"]`.  Reference frames are kept as `DevRef`s: the device
 plane that MC reads, and the host plane that the C recon and the
-diffwtd masks read, each made once.
+diffwtd masks read, each made once.  Display planes are `LazyPlanes`: in
+resident mode nothing is downloaded until a consumer indexes them.
 """
 
 from __future__ import annotations
@@ -29,8 +32,11 @@ from easyav1_tpu_torch import native as nat
 from easyav1_tpu_torch.container.webm import TrackType, WebMDemuxer
 from easyav1_tpu_torch.video.av1.recon.inter_exec import InterRecon
 from easyav1_tpu_torch.video.av1.recon.intra_exec import IntraRecon
+from easyav1_tpu_torch.video.av1.recon.lr_torch import (LoopRestoration,
+                                                        lr_plan)
 from easyav1_tpu_torch.video.av1.recon.mc_plan import export_inter_plan
 from easyav1_tpu_torch.video.av1.recon.postfilter import postfilter_frame
+from easyav1_tpu_torch.video.av1.recon.sr_torch import upscale_plane
 
 # frames that reached the pipe, and those of them declined to the C recon
 stats = {"frames": 0, "fallbacks": 0}
@@ -45,7 +51,8 @@ def _count(fallback: bool) -> None:
 
 # When a list, each frame the pipe covers appends {stage: wall seconds}
 # (the device synchronised at every stage's end): "entropy", "plan",
-# "prepare", "upload", "mc", "intra", "lf_cdef", "tail".  None: off.
+# "prepare", "upload", "mc", "intra", "lf_cdef", "sr", "lr", "tail",
+# "grain" (the last four only where the frame has them).  None: off.
 stage_log: Optional[list] = None
 
 
@@ -70,27 +77,70 @@ class _Stages:
             stage_log.append(self.t)
 
 
+class LazyPlanes:
+    """A frame's planes, uint8 on the device, as a sequence of numpy
+    planes that are downloaded when first indexed (the counterpart of
+    the reference's `_LazyPlanes`).  With `eager` the download is made
+    at once; without it (resident mode) a frame that is only hashed on
+    the device (`device_planes`) never crosses to the host."""
+
+    __slots__ = ("_devs", "_np")
+
+    def __init__(self, devs: List[torch.Tensor], eager: bool = True):
+        self._devs = devs
+        self._np = None
+        if eager:
+            self._mat()
+
+    @property
+    def device_planes(self) -> List[torch.Tensor]:
+        return self._devs
+
+    @property
+    def materialised(self) -> bool:
+        return self._np is not None
+
+    def _mat(self):
+        if self._np is None:
+            self._np = [d.cpu().numpy() for d in self._devs]
+        return self._np
+
+    def __len__(self):
+        return len(self._devs)
+
+    def __getitem__(self, i):
+        return self._mat()[i]
+
+    def __iter__(self):
+        return iter(self._mat())
+
+
 class DevRef:
     """One plane of a reference frame (the counterpart of the reference's
     `_DevRef`, `native/__init__.py:1249-1271`): the uint8 [lh, lw] plane
     on the device that MC reads, and the uint16 host plane that the C
-    recon and the diffwtd masks read.  A plane the device made keeps its
-    downloaded display copy, from which the host plane is made once; a
-    plane the C recon made is uploaded once, at its first use by MC.
-    The pipe covers 8-bit frames only, so uint8 holds every sample."""
+    recon and the diffwtd masks read.  A plane the device made has its
+    host plane made once, on demand: from the frame's `LazyPlanes` where
+    those are downloaded already, else by downloading this plane alone
+    (in resident mode the frame itself stays on the device); a plane
+    the C recon made is uploaded once, at its first use by MC.  The pipe
+    covers 8-bit frames only, so uint8 holds every sample."""
 
-    __slots__ = ("_dev", "_u8", "_host", "lw", "lh")
+    __slots__ = ("_dev", "_lazy", "_host", "lw", "lh")
 
     def __init__(self, lw: int, lh: int, dev: Optional[torch.Tensor] = None,
-                 u8: Optional[np.ndarray] = None,
+                 lazy: Optional[Tuple[LazyPlanes, int]] = None,
                  host: Optional[np.ndarray] = None):
         self.lw, self.lh = lw, lh
-        self._dev, self._u8, self._host = dev, u8, host
+        self._dev, self._lazy, self._host = dev, lazy, host
 
     def host(self) -> np.ndarray:
         """The host plane, uint16, C-contiguous, at least lh x lw."""
         if self._host is None:
-            self._host = self._u8.astype(np.uint16)
+            planes, i = self._lazy
+            u8 = planes[i] if planes.materialised \
+                else self._dev.cpu().numpy()
+            self._host = u8.astype(np.uint16)
         return self._host
 
     def tensor(self, device: torch.device) -> torch.Tensor:
@@ -104,15 +154,11 @@ class DevRef:
 
 
 def covers(seq, hdr) -> bool:
-    """The slice: 8-bit frames, intra (intrabc too) or inter, without
-    superres, loop restoration or film grain.  Non-4:2:0 CfL is declined
+    """The slice: 8-bit frames, intra (intrabc too) or inter, with
+    superres, loop restoration and film grain.  Non-4:2:0 CfL is declined
     by the recons; intrabc blocks inside inter frames and scaled
     references by the MC planner."""
-    fg = getattr(hdr, "film_grain", None)
-    return (seq.color.bitdepth == 8
-            and not getattr(hdr, "use_superres", False)
-            and not getattr(getattr(hdr, "lr", None), "uses_lr", False)
-            and not (fg is not None and fg.apply_grain))
+    return seq.color.bitdepth == 8
 
 
 def export_units(lib, hdr, out, rp) -> Optional[np.ndarray]:
@@ -153,33 +199,74 @@ def intra_inputs(lib, seq, hdr, out, bufs, rp, device) -> Optional[dict]:
             "units": units.shape[0]}
 
 
-def _tail(dev, seq, hdr):
-    """Crop and cast: (display planes uint8, ref triples of DevRef) from
-    the post-filtered mi-aligned planes."""
+def _finish(dev, seq, hdr, out, bufs, maps, clock):
+    """The postfilter chain on the device, the counterpart of
+    `_device_pipe_finish`: LF, the deblocked snapshot, CDEF, superres of
+    the planes and of the snapshot, then loop restoration.  dev: the
+    reconstructed mi-aligned int32 planes; maps: `postfilter_frame`'s
+    (grids_for, skip grid, CDEF index grid).  Returns the planes, at the
+    upscaled width for a superres frame."""
+    device = dev[0].device
+    lr_on = bool(getattr(getattr(hdr, "lr", None), "uses_lr", False)
+                 and out.n_lr_units > 0)
+    res = postfilter_frame(dev, hdr, seq, *maps, want_deblocked=lr_on)
+    dev, debl = res if lr_on else (res, None)
+    clock.mark("lf_cdef", device)
+    if getattr(hdr, "use_superres", False):
+        ssx, bd = seq.color.subsampling_x, seq.color.bitdepth
+
+        def up(planes):
+            sub = [ssx if p else 0 for p in range(len(planes))]
+            return [upscale_plane(d, (hdr.frame_width + sx) >> sx,
+                                  (hdr.upscaled_width + sx) >> sx, bd)
+                    for d, sx in zip(planes, sub)]
+
+        dev, debl = up(dev), up(debl) if lr_on else None
+        clock.mark("sr", device)
+    if lr_on:
+        dev = LoopRestoration(hdr, seq, lr_plan(out, bufs),
+                              seq.color.bitdepth).apply(dev, debl)
+        clock.mark("lr", device)
+    return dev
+
+
+def _tail(dev, seq, hdr, resident, grain, clock):
+    """Crop and cast, then film grain on a copy: (display planes, a
+    `LazyPlanes` of uint8 device planes; ref triples of DevRef) from the
+    post-filtered planes.  grain: None, or a callable (film grain
+    parameters, seq, device planes) -> new grained device planes.  The
+    references keep the planes without grain; the display planes are
+    downloaded at once unless `resident`."""
     ssx, ssy = seq.color.subsampling_x, seq.color.subsampling_y
     w, h = hdr.upscaled_width, hdr.frame_height
     cw, ch = (w + ssx) >> ssx, (h + ssy) >> ssy
-    planes, refs = [], []
-    for d, (pw_, ph_) in zip(dev, ((w, h), (cw, ch), (cw, ch))):
-        u8 = d[:ph_, :pw_].to(torch.uint8).contiguous()
-        planes.append(u8.cpu().numpy())
-        refs.append((DevRef(pw_, ph_, dev=u8, u8=planes[-1]), pw_, ph_))
+    fg = getattr(hdr, "film_grain", None)
+    grained = grain is not None and fg is not None and fg.apply_grain
+    clean = [d[:ph_, :pw_].to(torch.uint8).contiguous()
+             for d, (pw_, ph_) in zip(dev, ((w, h), (cw, ch), (cw, ch)))]
+    planes = LazyPlanes(clean, eager=not (resident or grained))
+    refs = [(DevRef(u8.shape[1], u8.shape[0], dev=u8, lazy=(planes, p)),
+             u8.shape[1], u8.shape[0]) for p, u8 in enumerate(clean)]
+    clock.mark("tail", clean[0].device)
+    if grained:
+        noisy = grain(fg, seq, clean)
+        clock.mark("grain", clean[0].device)
+        planes = LazyPlanes(noisy, eager=not resident)
+        clock.mark("tail", clean[0].device)
     return planes, refs
 
 
 def _intra_frame(lib, seq, hdr, out, bufs, rp, device, clock):
-    """Device recon + LF + CDEF of an intra frame.  Returns (display
-    planes uint8, ref triples of DevRef), or None when the executor
-    declines the frame."""
+    """Device recon and postfilters of an intra frame.  Returns the
+    post-filtered device planes, or None when the executor declines the
+    frame."""
     inp = intra_inputs(lib, seq, hdr, out, bufs, rp, device)
     if inp is None:
         return None
     clock.mark("upload", device)
     dev = inp["recon"].launch(inp["fields"], inp["resid"], inp["schedule"])
     clock.mark("intra", device)
-    dev = postfilter_frame(dev, hdr, seq, *inp["maps"])
-    clock.mark("lf_cdef", device)
-    return _tail(dev, seq, hdr)
+    return _finish(dev, seq, hdr, out, bufs, inp["maps"], clock)
 
 
 class _HostLuma:
@@ -194,8 +281,8 @@ class _HostLuma:
 
 
 def _inter_frame(lib, seq, hdr, out, bufs, rp, refs, device, clock):
-    """Device MC + OBMC + intra units + LF + CDEF of an inter frame, the
-    counterpart of `_device_frame_inter`.  refs: per-slot triples of
+    """Device MC + OBMC + intra units and postfilters of an inter frame,
+    the counterpart of `_device_frame_inter`.  refs: per-slot triples of
     (DevRef, lw, lh).  Returns as `_intra_frame`, or None when the
     planner or the recon declines the frame."""
     ref_dims = [None if refs[s] is None else (refs[s][0][1], refs[s][0][2])
@@ -228,10 +315,9 @@ def _inter_frame(lib, seq, hdr, out, bufs, rp, refs, device, clock):
     clock.mark("mc", device)
     dev = ir.intra(dev, fields, resid, masks, schedule)
     clock.mark("intra", device)
-    dev = postfilter_frame(dev, hdr, seq, nat._grids_exporter(lib, rp, out),
-                           bufs["grids"]["skip"], bufs["cdef"])
-    clock.mark("lf_cdef", device)
-    return _tail(dev, seq, hdr)
+    return _finish(dev, seq, hdr, out, bufs,
+                   (nat._grids_exporter(lib, rp, out), bufs["grids"]["skip"],
+                    bufs["cdef"]), clock)
 
 
 def first_frame_inputs(path: str, device: torch.device) -> Optional[dict]:
@@ -319,12 +405,16 @@ def _c_refs(refs):
 
 def decode_and_recon(seq, hdr, tiles: List[bytes], device: torch.device,
                      cdf_in=None, want_cdf=False, tpl=None, refs=None,
-                     threads=0) -> Optional[Tuple]:
+                     threads=0, resident=False, grain=None
+                     ) -> Optional[Tuple]:
     """Entropy decode in C, then the port's device recon (or the C recon
     for a declined frame).  Returns (display planes, cdf blob or None,
     mv grids or None, ref triples), or None when the C entropy decoder
     declines the frame.  refs: per-slot triples of (DevRef, logical w,
-    logical h)."""
+    logical h).  The display planes of a frame the device made are a
+    `LazyPlanes`, with film grain already applied by `grain` (see
+    `_tail`); those of a declined frame are numpy planes without
+    grain.  resident: download no plane until a consumer indexes it."""
     lib = nat._load()
     clock = _Stages()
     if not hdr.frame_is_intra and (
@@ -348,7 +438,7 @@ def decode_and_recon(seq, hdr, tiles: List[bytes], device: torch.device,
                _inter_frame(lib, seq, hdr, out, bufs, rp, refs, device,
                             clock))
         if got is not None:
-            clock.mark("tail")
+            got = _tail(got, seq, hdr, resident, grain, clock)
             clock.close()
     _count(fallback=got is None)
     if got is None:

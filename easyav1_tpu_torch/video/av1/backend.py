@@ -7,8 +7,10 @@ The reference's `AV1Backend` with one of two routes for every frame:
   `native.decode_and_recon_native` (the reference's native path without
   its frame-parallel branch);
 - a torch device: the port's pipe, `native.pipe.decode_and_recon`, which
-  reconstructs the frames it covers on that device and declines the
-  rest to the C recon.
+  reconstructs the frames it covers on that device, film grain
+  included, and declines the rest to the C recon (their grain runs in
+  host C).  With `resident` the frames' planes stay on the device until
+  a consumer indexes them.
 
 Where the reference falls back to its pure-Python decoder when the C
 decoder declines a frame (a tile-count mismatch or a corrupt tile), the
@@ -18,6 +20,8 @@ port raises AV1DecodeError, and the API sets an error status.
 from __future__ import annotations
 
 from typing import List, Optional
+
+import dataclasses
 
 import numpy as np
 
@@ -38,6 +42,7 @@ from easyav1_tpu_torch.video.av1.headers import (FrameHeader, HeaderParser,
                                                  parse_sequence_header,
                                                  split_obus)
 from easyav1_tpu_torch.video.av1.mfmv import save_tmvs, setup_motion_field
+from easyav1_tpu_torch.video.av1.recon.fg_torch import FilmGrain
 
 
 class AV1DecodeError(Exception):
@@ -45,10 +50,16 @@ class AV1DecodeError(Exception):
 
 
 class AV1Backend:
-    def __init__(self, track: TrackInfo, device=None, threads: int = 0):
+    def __init__(self, track: TrackInfo, device=None, threads: int = 0,
+                 resident: bool = False):
         self.track = track
         # None: the C recon; a torch.device: the port's pipe
         self.device = device
+        # the pipe's frames stay on the device until they are indexed
+        self.resident = resident
+        # (grain parameters, their FilmGrain on the device), kept across
+        # frames whose parameters do not change
+        self._dev_fg = None
         # tile-parallel entropy worker count; 0 = auto (cpu count),
         # EASYAV1_THREADS still overrides inside native.decode_threads()
         self.threads = threads
@@ -164,7 +175,8 @@ class AV1Backend:
             res = pipe.decode_and_recon(
                 seq, hdr, tiles, self.device, cdf_in=init_blob,
                 want_cdf=want_cdf, tpl=tpl, refs=self._ref_u16,
-                threads=self.threads)
+                threads=self.threads, resident=self.resident,
+                grain=self._film_grain_device)
         if res is None:
             raise AV1DecodeError("the C decoder declined the frame "
                                  "(tile count or tile data)")
@@ -272,14 +284,28 @@ class AV1Backend:
         )
         fg = getattr(hdr, "film_grain", None)
         out_planes = planes
-        if fg is not None and fg.apply_grain:
+        if (fg is not None and fg.apply_grain
+                and not isinstance(planes, pipe.LazyPlanes)):
             # grain is an output-only transform; reference frames stay
-            # grain-free (spec 7.18.1)
+            # grain-free (spec 7.18.1).  A frame the device made has its
+            # grain already (pipe._tail); this is one the C recon made.
             out_planes = native.film_grain_native(fg, seq, planes)
             if out_planes is None:
                 raise AV1DecodeError("film grain synthesis failed")
         return VideoFrame(properties=props, timestamp=ts,
                           data=out_planes)
+
+    def _film_grain_device(self, fg, seq, planes):
+        """Film grain on the device planes of a frame the pipe made; the
+        templates and LUTs are kept while the parameters stay the same
+        (the reference's `_film_grain_device`)."""
+        key = tuple(tuple(v) if isinstance(v, list) else v
+                    for v in (getattr(fg, f.name)
+                              for f in dataclasses.fields(fg)))
+        if self._dev_fg is None or self._dev_fg[0] != key:
+            self._dev_fg = (key, FilmGrain(fg, seq, seq.color.bitdepth,
+                                           self.device))
+        return self._dev_fg[1].apply(planes)
 
 
 def _safe_enum(enum_cls, value):

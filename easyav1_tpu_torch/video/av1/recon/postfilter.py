@@ -194,16 +194,22 @@ def postfilter_maps(hdr, seq, dims, grids_for, skip_grid: np.ndarray,
     return maps
 
 
-def postfilter_apply(planes: List[torch.Tensor],
-                     maps: Dict) -> List[torch.Tensor]:
+def postfilter_apply(planes: List[torch.Tensor], maps: Dict,
+                     want_deblocked: bool = False):
     """The device half: LF + CDEF over mi-aligned int32 planes with the
-    maps of `postfilter_maps`; returns the filtered planes."""
+    maps of `postfilter_maps`; returns the filtered planes, or with
+    `want_deblocked` (planes, deblocked): also the planes after LF and
+    before CDEF, which loop restoration reads above and below a stripe
+    (`postfilter_fused.py:206`, `:256-257`).  No function here writes a
+    plane it was given, so with LF off the snapshot is the input planes
+    and with CDEF off it is the result."""
     bd = maps["bd"]
     out = list(planes)
     if maps["lf"] is not None:
         for p, m in enumerate(maps["lf"]):
             buf = lf_torch.pass_body(out[p], m["sv"], *m["lv"], bd)
             out[p] = lf_torch.pass_body(buf.T, m["sh"], *m["lh"], bd).T
+    deblocked = list(out)
     m = maps["cdef"]
     if m is not None:
         uh, uw = m["filt"].shape
@@ -212,15 +218,15 @@ def postfilter_apply(planes: List[torch.Tensor],
             out[p], dirs, var, m["pri_y" if p == 0 else "pri_uv"],
             m["sec_y" if p == 0 else "sec_uv"], m["filt"], *m["ss"], p, bd,
             m["damping"], m["tabs"]) for p in range(len(out))]
-    return out
+    return (out, deblocked) if want_deblocked else out
 
 
 def postfilter_frame(planes: List[torch.Tensor], hdr, seq, grids_for,
-                     skip_grid: np.ndarray,
-                     cdef_idx_grid: np.ndarray) -> List[torch.Tensor]:
-    """LF + CDEF over mi-aligned int32 planes on one device; returns the
-    filtered planes.  Arguments as `postfilter_maps`."""
+                     skip_grid: np.ndarray, cdef_idx_grid: np.ndarray,
+                     want_deblocked: bool = False):
+    """LF + CDEF over mi-aligned int32 planes on one device; returns as
+    `postfilter_apply`.  Arguments as `postfilter_maps`."""
     dims = tuple((int(p.shape[0]), int(p.shape[1])) for p in planes)
     return postfilter_apply(planes, postfilter_maps(
         hdr, seq, dims, grids_for, skip_grid, cdef_idx_grid,
-        planes[0].device))
+        planes[0].device), want_deblocked)

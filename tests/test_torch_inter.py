@@ -455,6 +455,83 @@ def test_port_vs_native(tag, monkeypatch):
             "obmc": seen["overlays"], "warp": seen["warps"]}[tag] > 0, seen
 
 
+@pytest.mark.parametrize("tag,kw", [
+    ("comp_masked_all", {"crf": 26}),                  # + OBMC, warp, jnt
+    ("comp_masked_odd", {"w": 94, "h": 98, "crf": 30}),
+])
+def test_masked_compound_streams_vs_native(tag, kw, monkeypatch):
+    """The other two masked-compound encodes of test_av1_inter_real.py
+    (every compound tool on, and an odd size with partial superblocks):
+    equal to the native C session with no fallback.  Like "masked"
+    above, libaom puts no wedge or diffwtd pair in them; the streams of
+    test_masked_pair_streams_vs_native_and_dav1d have them."""
+    from test_av1_inter_real import COMP_SCOPE, MASKED_BASE, inter_fixture
+
+    path = str(inter_fixture(tag, frames=8, scope=COMP_SCOPE, extra=(
+        "vopt:aom-params=" + MASKED_BASE,), **kw)[0])
+    masked = []
+    orig = pipe.export_inter_plan
+
+    def spy(*a, **k):
+        plan = orig(*a, **k)
+        if plan is not None:
+            masked.append(sum(int((v[:, MP.P_MODE] == 1).sum())
+                              for v in plan["pairs"].values()))
+        return plan
+
+    monkeypatch.setattr(pipe, "export_inter_plan", spy)
+    got = _port(path)
+    stats = dict(easyav1_tpu_torch.stats)
+    monkeypatch.delenv("EASYAV1_PIPE", raising=False)
+    _assert_frames_equal(got, _decode(lambda: native_session(path)))
+    assert stats == {"frames": 8, "fallbacks": 0}
+    assert len(masked) == 7
+    assert sum(masked) == 0
+
+
+@pytest.mark.parametrize("name,frames,decoded,wedge,diffwtd", [
+    ("comp_masked_320x192.webm", 10, 10, 1, 22),
+    ("comp_wedge_320x192.webm", 12, 13, 2, 4),      # one hidden frame
+])
+def test_masked_pair_streams_vs_native_and_dav1d(name, frames, decoded,
+                                                 wedge, diffwtd,
+                                                 monkeypatch):
+    """The in-repo libaom streams whose plans carry wedge and diffwtd
+    pairs (tools/build/make_fixture w=320 h=192 fps=10 gop=100
+    audio_secs=0, restoration, palette, filter-intra and intrabc off,
+    lag-in-frames=8 auto-alt-ref=1, aom-params enable-interintra-comp=0:
+    enable-masked-comp=1:enable-diff-wtd-comp=1:enable-interinter-wedge=1:
+    enable-obmc=0:enable-warped-motion=0:enable-global-motion=0; the
+    first with frames=10 crf=28 cpu-used=1 content=2, the second with
+    frames=12 crf=12 cpu-used=0 content=0): the mask blends on real
+    blocks, equal to the native C session and to dav1d, no fallback."""
+    from test_torch_pipe import SMOKE, _dav1d_frames
+
+    path = os.path.join(SMOKE, name)
+    kinds, masked = [], []
+    orig = pipe.export_inter_plan
+
+    def spy(seq, hdr, blocks, *a, **k):
+        kinds.extend(int(b[MP.B_COMP_TYPE]) for b in blocks)
+        plan = orig(seq, hdr, blocks, *a, **k)
+        masked.append(sum(int((v[:, MP.P_MODE] == 1).sum())
+                          for v in plan["pairs"].values()))
+        return plan
+
+    monkeypatch.setattr(pipe, "export_inter_plan", spy)
+    got = _port(path)
+    stats = dict(easyav1_tpu_torch.stats)
+    monkeypatch.delenv("EASYAV1_PIPE", raising=False)
+    _assert_frames_equal(got, _decode(lambda: native_session(path)))
+    _assert_frames_equal(got, _dav1d_frames(path, name.split(".")[0]))
+    assert len(got) == frames
+    assert stats == {"frames": decoded, "fallbacks": 0}
+    assert kinds.count(MP.COMP_WEDGE) == wedge
+    assert kinds.count(MP.COMP_DIFFWTD) == diffwtd
+    # a masked block gives one masked unit a plane it covers
+    assert sum(masked) >= wedge + diffwtd
+
+
 def test_interintra_stream_vs_native(monkeypatch):
     """The dense interintra stream: interintra units blend on the port."""
     from easyav1_tpu.container.webm import TrackInfo

@@ -332,3 +332,241 @@ def test_native_session_refuses_other_pipes(monkeypatch):
     monkeypatch.setenv("EASYAV1_PIPE", "pallas")
     with pytest.raises(RuntimeError, match="native C path"):
         native_session(str(_gop4_fixture()))
+
+
+# ---- superres, loop restoration and film grain frames on the port
+
+SMOKE = os.path.join(REPO, "tests", "data", "smoke")
+# in-repo streams: (file, frames, also held against the JAX device pipe).
+# The JAX package's decoder counts a superres frame's restoration unit
+# columns in coded pixels (right for one unit column only), so the wide
+# superres stream is held against dav1d and the native C session alone.
+NEW_SMOKE = [("lreal_mix_e8bf32ba.webm", 1, True),
+             ("lreal_interlr_863022fc.webm", 4, True),
+             ("fgreal_7cdd830f.webm", 2, True),
+             ("superres_lr_88x64.webm", 3, True),
+             ("superres_lr_1920x128.webm", 3, False)]
+
+
+def _dav1d_frames(path, tag):
+    """Every frame of a stream as the dav1d oracle tool decodes it."""
+    prefix = CACHE / f"torch_{tag}"
+    CACHE.mkdir(parents=True, exist_ok=True)
+    subprocess.run([str(tool("oracle")), str(path), str(prefix)],
+                   check=True, capture_output=True)
+    meta = json.loads(prefix.with_suffix(".json").read_text())
+    w, h = meta["width"], meta["height"]
+    raw = np.fromfile(prefix.with_suffix(".yuv"), dtype=np.uint8)
+    cw, ch = (w + 1) // 2, (h + 1) // 2
+    per = w * h + 2 * cw * ch
+    return [[raw[b:b + w * h].reshape(h, w),
+             raw[b + w * h:b + w * h + cw * ch].reshape(ch, cw),
+             raw[b + w * h + cw * ch:b + per].reshape(ch, cw)]
+            for b in range(0, meta["vframes"] * per, per)]
+
+
+def _jax_pipe(path, monkeypatch):
+    monkeypatch.setenv("EASYAV1_FRAME_PARALLEL", "0")
+    monkeypatch.setenv("EASYAV1_PIPE", "pallas")
+    return _decode(lambda: ref_api.EasyAV1(str(path)))
+
+
+@pytest.mark.parametrize("name,n,jax_pipe", NEW_SMOKE)
+def test_sr_lr_grain_smoke_streams(name, n, jax_pipe, monkeypatch):
+    """The in-repo streams with loop restoration (Wiener, SGR,
+    intra and inter), film grain and superres: no fallback, every plane
+    equal to the port's native C session, to dav1d and to the JAX
+    device pipe."""
+    from easyav1_tpu_torch.api import native_session
+
+    path = os.path.join(SMOKE, name)
+    monkeypatch.delenv("EASYAV1_PIPE", raising=False)
+    got = _port(path)
+    assert easyav1_tpu_torch.stats == {"frames": n, "fallbacks": 0}
+    _assert_frames_equal(got, _decode(lambda: native_session(path)))
+    _assert_frames_equal(got, _dav1d_frames(path, name.split(".")[0]))
+    if jax_pipe:
+        _assert_frames_equal(got, _jax_pipe(path, monkeypatch))
+
+
+@pytest.mark.parametrize("tag,w,h,crf,extra", [
+    ("sgr", 96, 96, 30, ()),
+    ("wiener", 200, 320, 18, ()),
+    ("noise", 160, 160, 35, ("content=1",)),
+])
+def test_lr_cached_streams(tag, w, h, crf, extra, monkeypatch):
+    """The libaom loop-restoration key frames of test_av1_lr_real.py
+    through the port: no fallback, equal to dav1d, to the native C
+    session and (the small ones) to the JAX device pipe."""
+    from easyav1_tpu_torch.api import native_session
+    from test_av1_lr_real import lr_fixture
+
+    path, prefix = lr_fixture(tag, w, h, crf, 1, extra)
+    monkeypatch.delenv("EASYAV1_PIPE", raising=False)
+    got = _port(path)
+    assert easyav1_tpu_torch.stats == {"frames": 1, "fallbacks": 0}
+    _assert_frames_equal(got, _decode(lambda: native_session(str(path))))
+    raw = np.fromfile(prefix.with_suffix(".yuv"), dtype=np.uint8)
+    cw, ch = (w + 1) // 2, (h + 1) // 2
+    _assert_frames_equal(got, [[
+        raw[:w * h].reshape(h, w),
+        raw[w * h:w * h + cw * ch].reshape(ch, cw),
+        raw[w * h + cw * ch:w * h + 2 * cw * ch].reshape(ch, cw)]])
+    if tag != "wiener":
+        _assert_frames_equal(got, _jax_pipe(path, monkeypatch))
+
+
+def _superres_tu(w, h, denom, seed=7, **kw):
+    from easyav1_tpu.video.av1.av1_enc import encode_frame
+    from test_av1_lr import blocks_with_texture
+
+    wd = (w * 8 + denom // 2) // denom
+    return encode_frame(w, h, 60, blocks_with_texture(
+        2 * ((wd + 7) >> 3), 2 * ((h + 7) >> 3), seed),
+        superres_denom=denom, **kw)
+
+
+SR_CASES = {
+    "d9": (72, 64, 9, {}),
+    "d13": (104, 64, 13, {}),
+    "d16": (128, 64, 16, {}),
+    "unaligned": (64, 64, 9, {}),             # coded width 57
+    "wide": (192, 64, 16, {}),
+    "lf": (96, 64, 12, {"lf_levels": (24, 20)}),
+    "cdef": (120, 64, 15, {"cdef": (3, [(4, 2, 3, 1)])}),
+    "lr": (88, 64, 11, {"lr": [2, 0, 0], "lr_units": {
+        (0, 0, 0): ("wiener", [[2, -5, 20], [-1, 3, 10]])}}),
+    "lf_cdef_lr": (88, 64, 11, {"lr": [2, 0, 0], "lr_units": {
+        (0, 0, 0): ("wiener", [[2, -5, 20], [-1, 3, 10]])},
+        "lf_levels": (10, 8), "cdef": (3, [(4, 2, 3, 1)])}),
+    "sgr": (88, 64, 11, {"lr": [3, 0, 0], "lr_units": {
+        (0, 0, 0): ("sgr", 4, 12, 30)}, "lf_levels": (10, 8)}),
+}
+
+
+@pytest.mark.parametrize("case", list(SR_CASES))
+def test_superres_synthetic_frames(case, monkeypatch):
+    """Synthetic superres key frames (the cases of test_av1_superres.py)
+    through the port's backend: no fallback, the upscaled size, equal to
+    the reference's native C recon and to dav1d."""
+    from av1_synth import dav1d_decode_ivf
+    from easyav1_tpu.video.av1.av1_enc import make_ivf
+
+    w, h, denom, kw = SR_CASES[case]
+    tu = _superres_tu(w, h, denom, seed=denom, **kw)
+    assert _synthetic_frame(tu, monkeypatch) == {"frames": 1, "fallbacks": 0}
+    got = [np.array(p) for p in TorchAV1Backend(
+        TrackInfo(number=1, type=None, codec_id="V_AV1"),
+        torch.device("cpu")).decode([tu], 0)[0].data]
+    assert got[0].shape == (h, w)
+    dav = dav1d_decode_ivf(make_ivf([tu], w, h), f"torch_sr_{case}")[0]
+    _assert_frames_equal([got], [[dav["y"], dav["u"], dav["v"]]])
+
+
+def test_superres_frame_vs_jax_pipe(monkeypatch):
+    """One superres frame with LF, CDEF and LR against the JAX device
+    pipe on the same temporal unit."""
+    w, h, denom, kw = SR_CASES["lf_cdef_lr"]
+    tu = _superres_tu(w, h, denom, **kw)
+    track = TrackInfo(number=1, type=None, codec_id="V_AV1")
+    got = [np.array(p) for p in TorchAV1Backend(
+        track, torch.device("cpu")).decode([tu], 0)[0].data]
+    monkeypatch.setenv("EASYAV1_PIPE", "pallas")
+    want = [np.array(p) for p in AV1Backend(track).decode([tu], 0)[0].data]
+    _assert_frames_equal([got], [want])
+
+
+def test_film_grain_runs_on_the_device_and_spares_the_references(
+        monkeypatch):
+    """A grain frame the port covers gets its grain from fg_torch on a
+    copy: host C grain is not called, and the reference planes the next
+    frame would read are the planes without grain."""
+    from easyav1_tpu_torch import native as tnat
+    from easyav1_tpu_torch.api import native_session
+    from easyav1_tpu_torch.native import pipe
+
+    def no_host_grain(*a, **k):
+        raise AssertionError("host C grain called for a device frame")
+
+    path = os.path.join(SMOKE, "fgreal_7cdd830f.webm")
+    monkeypatch.delenv("EASYAV1_PIPE", raising=False)
+    want = _decode(lambda: native_session(path))
+    refs = []
+    tail = pipe._tail
+
+    def spy_tail(*a, **k):
+        planes, triples = tail(*a, **k)
+        refs.append(([t[0].tensor(torch.device("cpu")).numpy().copy()
+                      for t in triples],
+                     [np.array(p) for p in planes]))
+        return planes, triples
+
+    monkeypatch.setattr(tnat, "film_grain_native", no_host_grain)
+    monkeypatch.setattr(pipe, "_tail", spy_tail)
+    got = _port(path)
+    _assert_frames_equal(got, want)
+    assert len(refs) == 2
+    for clean, shown in refs:
+        assert any(not np.array_equal(a, b) for a, b in zip(clean, shown))
+    # the references are the frames as decoded without grain
+    hdr_off = pipe._tail
+    monkeypatch.setattr(pipe, "_tail", lambda dev, seq, hdr, resident, grain,
+                        clock: tail(dev, seq, hdr, resident, None, clock))
+    bare = _port(path)
+    monkeypatch.setattr(pipe, "_tail", hdr_off)
+    _assert_frames_equal([c for c, _ in refs], bare)
+
+
+def test_covers_declines_only_high_bit_depth():
+    from types import SimpleNamespace as NS
+    from easyav1_tpu_torch.native.pipe import covers
+
+    hdr = NS(use_superres=True, lr=NS(uses_lr=True),
+             film_grain=NS(apply_grain=True))
+    assert covers(NS(color=NS(bitdepth=8)), hdr)
+    assert not covers(NS(color=NS(bitdepth=10)), hdr)
+    assert not covers(NS(color=NS(bitdepth=12)), NS())
+
+
+@pytest.mark.parametrize("tag,w,h,crf,extra,lf_off", [
+    ("oddcdef", 84, 52, 30, "odd", False),      # LF and CDEF on
+    ("odd", 66, 50, 30, "none", False),         # LF on, CDEF off
+    ("64hiq", 64, 64, 10, "none", False),
+    ("neardflt", 96, 96, 30, "near", False),    # LF off as coded, CDEF on
+    ("oddcdef", 84, 52, 30, "odd", True),       # LF forced off
+])
+def test_want_deblocked_vs_jax(tag, w, h, crf, extra, lf_off):
+    """`postfilter_frame(want_deblocked=True)`: the planes after LF and
+    before CDEF equal `postfilter_fused.postfilter_frame`'s; with LF off
+    the snapshot is the input planes, and CDEF never writes it."""
+    from easyav1_tpu.video.av1.recon.postfilter_fused import \
+        postfilter_frame as postfilter_jax
+    from easyav1_tpu_torch.video.av1.recon.postfilter import postfilter_frame
+    from test_av1_real import NEAR_DEFAULT
+    from test_torch_postfilter import ODD_CDEF, _raw_frame
+
+    extra = {"near": tuple(NEAR_DEFAULT), "none": (), "odd": ODD_CDEF}[extra]
+    seq, hdr, raw, (grids_for, skip, cdef_idx) = _raw_frame(
+        tag, w, h, crf, extra, 2 if tag == "oddcdef" else 1)
+    if lf_off:
+        hdr.lf.level = [0, 0, 0, 0]
+    lf_on = any(hdr.lf.level[:2])
+    assert lf_on == (tag != "neardflt" and not lf_off)
+    want, want_d = postfilter_jax([r.copy() for r in raw], hdr, seq,
+                                  grids_for, skip, cdef_idx,
+                                  want_deblocked=True)
+    tin = [torch.from_numpy(r.copy()) for r in raw]
+    got, got_d = postfilter_frame(tin, hdr, seq, grids_for, skip, cdef_idx,
+                                  want_deblocked=True)
+    for p in range(3):
+        assert np.array_equal(got[p].numpy(), np.asarray(want[p])), p
+        assert np.array_equal(got_d[p].numpy(), np.asarray(want_d[p])), p
+        assert np.array_equal(tin[p].numpy(), raw[p]), "input written"
+    if not lf_on:
+        assert all(np.array_equal(d.numpy(), r) for d, r in zip(got_d, raw))
+    else:
+        assert any(not np.array_equal(d.numpy(), r)
+                   for d, r in zip(got_d, raw))
+    # where CDEF changed a plane it left the snapshot alone
+    cdef_on = max(hdr.cdef.y_pri_strength + hdr.cdef.y_sec_strength) > 0
+    assert cdef_on == any(not torch.equal(a, b) for a, b in zip(got, got_d))

@@ -1,20 +1,25 @@
-"""Profile the port's deblocking + CDEF stage (eager torch ops) on one
-NVIDIA GPU: how many device operations one frame's `postfilter_apply`
-launches, their summed device time, and how much of the stage's wall time
-the device is busy.
+"""Profile the port's postfilter stages (eager torch ops) on one NVIDIA
+GPU: how many device operations one frame's stage launches, their summed
+device time, and how much of the stage's wall time the device is busy.
 
     python3 tools/torch_postfilter_profile.py [FRAME] [REPEATS]
 
-Decodes tests/data/bench/bench_av1_inter_1920x1080_60.webm through the
-port up to inter frame FRAME (default 5), keeps that frame's planes
-before the postfilters and its filter maps, then runs `postfilter_apply`
-on them REPEATS times (default 5) under `torch.profiler` and prints, per
-frame: the device operations (kernels and copies), their summed device
-time, the time the device is busy (the union of their intervals), the
-stage's wall time on the host clock with the device synchronised at its
-end, the idle time between operations, the busy share, and the ten
-operations that take the most device time.  The same stage is timed
-without the profiler, for what the instrumentation costs.
+Decodes tests/data/bench/bench_av1_inter_1920x1080_60.webm (deblocking
+off, CDEF on) through the port up to inter frame FRAME (default 5) and
+tests/data/bench/bench_av1_lr_grain_1920x1080_8.webm (deblocking, loop
+restoration and film grain on) up to inter frame min(FRAME, 7), keeps
+what enters each stage of that frame, then runs each stage REPEATS times
+(default 5) under `torch.profiler`: deblocking + CDEF
+(`postfilter_apply`) on both, loop restoration (`lr_torch`, host maps
+included) and film grain (`fg_torch`, the per-frame host random values
+included, the templates made before) on the second.  It prints, per
+frame and stage: the device operations (kernels and copies), their
+summed device time, the time the device is busy (the union of their
+intervals), the stage's wall time on the host clock with the device
+synchronised at its end, the idle time between operations, the busy
+share, and the ten operations that take the most device time.  Each
+stage is also timed without the profiler, for what the instrumentation
+costs.
 """
 
 import os
@@ -32,42 +37,62 @@ from easyav1_tpu_torch.native import pipe  # noqa: E402
 from easyav1_tpu_torch.video.av1.recon.postfilter import (  # noqa: E402
     postfilter_apply, postfilter_maps)
 
-STREAM = os.path.join(REPO, "tests", "data", "bench",
-                      "bench_av1_inter_1920x1080_60.webm")
+BENCH = os.path.join(REPO, "tests", "data", "bench")
+STREAM = os.path.join(BENCH, "bench_av1_inter_1920x1080_60.webm")
+LR_GRAIN = os.path.join(BENCH, "bench_av1_lr_grain_1920x1080_8.webm")
 
 
-def capture(index):
-    """(planes, maps) of the stream's inter frame `index` as they enter
-    the postfilters."""
-    got, seen = {}, {"inter": 0}
-    orig = pipe.postfilter_frame
+def capture(path, index):
+    """What enters the postfilter stages of the stream's inter frame
+    `index`: {"planes", "maps"} of LF + CDEF, and where the frame has
+    them {"lr": (LoopRestoration, planes, deblocked)} and {"grain":
+    (FilmGrain, planes)}."""
+    from easyav1_tpu_torch.video.av1.backend import AV1Backend
 
-    def spy(planes, hdr, seq, grids_for, skip, cdef):
-        if not hdr.frame_is_intra:
-            seen["inter"] += 1
-            if seen["inter"] == index:
-                dims = tuple((int(p.shape[0]), int(p.shape[1]))
-                             for p in planes)
-                got.update(planes=[p.clone() for p in planes],
-                           maps=postfilter_maps(hdr, seq, dims, grids_for,
-                                                skip, cdef, planes[0].device))
-        return orig(planes, hdr, seq, grids_for, skip, cdef)
+    got, seen = {}, {"inter": 0, "on": False}
+    orig = pipe.postfilter_frame, pipe.LoopRestoration, \
+        AV1Backend._film_grain_device
 
-    pipe.postfilter_frame = spy
-    av = easyav1_tpu_torch.EasyAV1(STREAM, device="cuda")
+    def spy(planes, hdr, seq, grids_for, skip, cdef, want_deblocked=False):
+        seen["inter"] += not hdr.frame_is_intra
+        seen["on"] = not hdr.frame_is_intra and seen["inter"] == index
+        if seen["on"]:
+            dims = tuple((int(p.shape[0]), int(p.shape[1])) for p in planes)
+            got.update(planes=[p.clone() for p in planes],
+                       maps=postfilter_maps(hdr, seq, dims, grids_for, skip,
+                                            cdef, planes[0].device))
+        return orig[0](planes, hdr, seq, grids_for, skip, cdef,
+                       want_deblocked)
+
+    class SpyLR(orig[1]):
+        def apply(self, planes, deblocked):
+            if seen["on"]:
+                got["lr"] = (self, planes, deblocked)
+            return super().apply(planes, deblocked)
+
+    def spy_grain(self, fg, seq, planes):
+        out = orig[2](self, fg, seq, planes)
+        if seen["on"]:
+            got["grain"] = (self._dev_fg[1], planes)
+        return out
+
+    pipe.postfilter_frame, pipe.LoopRestoration = spy, SpyLR
+    AV1Backend._film_grain_device = spy_grain
+    av = easyav1_tpu_torch.EasyAV1(path, device="cuda")
     try:
         for _ in range(4096):
-            if got or av.is_finished():
+            if (got and not seen["on"]) or av.is_finished():
                 break
             av.decode_next()
             while av.has_video_frame():
                 av.get_video_frame()
     finally:
         av.close()
-        pipe.postfilter_frame = orig
+        pipe.postfilter_frame, pipe.LoopRestoration = orig[:2]
+        AV1Backend._film_grain_device = orig[2]
     if not got:
-        raise RuntimeError(f"no inter frame {index} in {STREAM}")
-    return got["planes"], got["maps"]
+        raise RuntimeError(f"no inter frame {index} in {path}")
+    return got
 
 
 def wall_ms(fn, reps):
@@ -79,22 +104,9 @@ def wall_ms(fn, reps):
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def main():
-    if not torch.cuda.is_available():
-        sys.exit("torch_postfilter_profile: no CUDA device")
-    index = int(sys.argv[1]) if len(sys.argv) > 1 else 5
-    reps = int(sys.argv[2]) if len(sys.argv) > 2 else 5
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip())
-    planes, maps = capture(index)
-    print(f"1080p inter frame {index}: deblocking "
-          f"{'on' if maps['lf'] is not None else 'off'}, CDEF "
-          f"{'on' if maps['cdef'] is not None else 'off'}")
-
-    def stage():
-        return postfilter_apply(planes, maps)
-
+def profile(name, stage, reps):
+    """Run `stage` under the profiler and print its counts (see the
+    module docstring)."""
     wall_ms(stage, 3)                       # warm up
     plain = wall_ms(stage, reps)
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -114,7 +126,7 @@ def main():
     total = sum(b - a for a, b in spans)
     ops, busy_ms, total_ms = len(dev) / reps, busy / reps / 1e3, \
         total / reps / 1e3
-    print(f"postfilter_apply, per frame over {reps} runs: {ops:.1f} device "
+    print(f"{name}, per frame over {reps} runs: {ops:.1f} device "
           f"operations, summed device time {total_ms:.4f} ms, device busy "
           f"{busy_ms:.4f} ms of {traced:.4f} ms wall (host clock, "
           f"synchronised): idle between operations {traced - busy_ms:.4f} "
@@ -127,9 +139,38 @@ def main():
         t[0] += 1
         t[1] += e.time_range.end - e.time_range.start
     print("device time by operation (calls and ms per frame):")
-    for name, (n, us) in sorted(by_name.items(),
+    for op, (n, us) in sorted(by_name.items(),
                                 key=lambda kv: -kv[1][1])[:10]:
-        print(f"  {n / reps:7.1f} {us / reps / 1e3:9.4f}  {name[:90]}")
+        print(f"  {n / reps:7.1f} {us / reps / 1e3:9.4f}  {op[:90]}")
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("torch_postfilter_profile: no CUDA device")
+    index = int(sys.argv[1]) if len(sys.argv) > 1 else 5
+    reps = int(sys.argv[2]) if len(sys.argv) > 2 else 5
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    for title, path, k in (("1080p inter stream", STREAM, index),
+                           ("1080p LR + grain stream", LR_GRAIN,
+                            min(index, 7))):
+        c = capture(path, k)
+        planes, maps = c["planes"], c["maps"]
+        print(f"{title}, inter frame {k}: deblocking "
+              f"{'on' if maps['lf'] is not None else 'off'}, CDEF "
+              f"{'on' if maps['cdef'] is not None else 'off'}, loop "
+              f"restoration {'on' if 'lr' in c else 'off'}, film grain "
+              f"{'on' if 'grain' in c else 'off'}")
+        profile(f"{title}: postfilter_apply (LF + CDEF)",
+                lambda: postfilter_apply(planes, maps), reps)
+        if "lr" in c:
+            lr, lr_planes, debl = c["lr"]
+            profile(f"{title}: loop restoration",
+                    lambda: lr.apply(lr_planes, debl), reps)
+        if "grain" in c:
+            fg, clean = c["grain"]
+            profile(f"{title}: film grain", lambda: fg.apply(clean), reps)
 
 
 if __name__ == "__main__":
