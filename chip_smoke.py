@@ -21,10 +21,17 @@ prints).  Then:
    multiple of 4), 6a on the 1080p inter frame, 20 runs of 6a on the 4K
    inter frame and 20 runs of 6b on a random 1080p program, each
    bit-equal to the first (a race shows here); the frame hash kernel on
-   seeded uint8 planes of odd sizes, offsets and pitches against its
-   plain version and `api.frame_hash`; and the torch-ops stages of this
-   slice (superres upscale, loop restoration, film grain) on the card
-   against the same functions on the CPU, on seeded 1080p inputs;
+   seeded uint8 and uint16 planes of odd sizes, offsets and pitches
+   against its plain version and `api.frame_hash`; the torch-ops stages
+   (superres upscale, loop restoration, film grain) on the card against
+   the same functions on the CPU, on seeded 1080p inputs; and the 10-
+   and 12-bit instantiations: 6a and 6b on uint16 references of seeded
+   random 10- and 12-bit MC programs at 1080p and at an odd size, with
+   20 runs of each bit-equal to the first, the strip kernel on random
+   programs at 10 and 12 bits, on the key frames of three small 10- and
+   12-bit streams and in place on a 4K 10-bit inter frame's pred units
+   (the uint16 6a on that frame too), and on the 4K 10-bit key frame
+   under the wavefront, with 5 more runs bit-equal to the first;
 2. drives the port's main path through `easyav1_tpu_torch.EasyAV1(path,
    device="cuda")`, each stream with the launch counts set to 0 just
    before it and read just after: all 30 frames of
@@ -36,10 +43,12 @@ prints).  Then:
    restoration, film grain and superres: the 8 frames of
    tests/data/bench/bench_av1_lr_grain_1920x1080_8.webm and the five
    small streams of tests/data/smoke/, and its two libaom streams with
-   wedge and diffwtd compound blocks (STREAMS below); every frame's
-   hash equal to the port's native C session's, no fallback, and the
-   launches as expected: one strip launch a frame, one of 6a an inter
-   frame, one of 6b a frame with OBMC blocks.  Then `decode_resident`
+   wedge and diffwtd compound blocks, and the 10- and 12-bit streams:
+   all 8 frames of tests/data/bench/bench_av1_10bit_3840x2160_8.webm
+   and the ten hbd_*.webm of tests/data/smoke/ (STREAMS below); every
+   frame's hash equal to the port's native C session's, no fallback,
+   and the launches as expected: one strip launch a frame, one of 6a an
+   inter frame, one of 6b a frame with OBMC blocks.  Then `decode_resident`
    on every stream (at most RESIDENT_FRAMES frames of each): its device
    hashes equal `api.frame_hash` of the same frames pulled through the
    API, no plane is downloaded, and the hash kernel launches once a
@@ -55,7 +64,11 @@ prints).  Then:
    byte bound; superres, loop restoration and film grain on 1080p
    planes; the stages of the 1080p loop-restoration and grain stream,
    and on it the port's fps, the native C session's and the resident
-   decode's.
+   decode's; on the 4K 10-bit stream the strip kernel on the key frame,
+   the uint16 6a and the strip kernel on an inter frame, 6b on a random
+   10-bit program and the hash kernel on a 4K 10-bit frame beside their
+   bounds (2 bytes a reference or frame sample), the stages of its inter
+   frames, and its port, resident and native fps.
 
 The smoke imports only torch and `easyav1_tpu_torch`, and checks that
 neither jax nor easyav1_tpu was imported.  Every phase raises on
@@ -103,12 +116,20 @@ KEY_4K = os.path.join(BENCH, "bench_av1_4k_3840x2160_24.webm")
 SMOKE = os.path.join(REPO, "tests", "data", "smoke")
 MODES = os.path.join(SMOKE, "inter_modes_96x96.webm")
 LR_GRAIN_1080 = os.path.join(BENCH, "bench_av1_lr_grain_1920x1080_8.webm")
+HBD_4K = os.path.join(BENCH, "bench_av1_10bit_3840x2160_8.webm")
 SEEDS = [301, 304, 305, 317, 310, 311, 312, 313]
 SCAN_SEEDS = [301, 303, 302, 310, 311, 319]
 # (seed, width, height): 1080p, and a size whose reference pitches are
 # odd, for the windows' alignment
 MC_PROGRAMS = [(21, 1920, 1080), (22, 1920, 1080), (23, 1920, 1080),
                (24, 1278, 718)]
+# (seed, width, height, bit depth) of the uint16 instantiations'
+# programs; the last 1080p one (10-bit) takes the race check and the
+# timing of 6b
+MC_PROGRAMS_16 = [(32, 1920, 1080, 12), (31, 1920, 1080, 10),
+                  (33, 1278, 718, 10)]
+# (seed, bit depth) of the strip kernel's high-bit-depth programs
+STRIP_HBD = [(301, 10), (305, 10), (304, 12), (317, 12)]
 # the kernels' launch counters, by the name of the kernels line
 COUNTERS = {"intra_strip": intra_strip.strip_exec_frame,
             "inter_mc": inter_mc.mc_launch, "obmc": inter_mc.obmc_launch,
@@ -197,7 +218,8 @@ class Frame:
     """A frame's executor inputs on the card: per-plane fields and
     residuals, dims, and its wavefront and sequential schedules."""
 
-    def __init__(self, fields, resid, dims, wavefront, dev):
+    def __init__(self, fields, resid, dims, wavefront, dev, bd=8):
+        self.bd = bd
         self.fields = [torch.from_numpy(f).to(dev) for f in fields]
         self.resid = [torch.from_numpy(r).to(dev) for r in resid]
         self.dims = dims
@@ -211,17 +233,17 @@ class Frame:
         check(k is not None, f"{path} frame 0 declined")
         f = cls([f.cpu().numpy() for f in k["fields"]],
                 [r.cpu().numpy() for r in k["resid"]], k["recon"].dims,
-                k["schedule"], dev)
+                k["schedule"], dev, k["seq"].color.bitdepth)
         f.key = k
         return f
 
     def run(self, schedule):
         return intra_strip.strip_exec_frame(self.fields, self.resid,
-                                            self.dims, 8, schedule)
+                                            self.dims, self.bd, schedule)
 
     def plain(self):
         return intra_strip.strip_exec_frame_plain(self.fields, self.resid,
-                                                  self.dims, 8)
+                                                  self.dims, self.bd)
 
     def bound_ms(self):
         """The least time for the kernel's work on this frame: each input
@@ -268,6 +290,54 @@ def check_kernel(dev):
     print("4K frame 0: 20 wavefront runs bit-equal to the first")
     check(err == 0, f"kernel vs plain max_abs_err {err} (tolerance 0)")
     return err, frames
+
+
+def check_kernel_hbd(dev):
+    """Phase 1: the strip kernel at 10 and 12 bits, against its plain
+    version, tolerance 0: seeded random programs under the sequential
+    schedule, and the key frames of the 10-bit, 12-bit and 10-bit 4:4:4
+    smoke streams under the wavefront; then the 4K 10-bit stream's key
+    frame under the wavefront against its plain version (one call, the
+    slowest of the run; its time is kept as the frame's `plain_ms`), and
+    5 more wavefront runs bit-equal to the first.  Returns (error, that
+    key frame)."""
+    err = 0
+    for seed, bd in STRIP_HBD:
+        prog = random_program(seed, mi_rows=68, mi_cols=120, n_rand=400,
+                              bd=bd)
+        pf = program_frame(prog)
+        fields = preprocess_units(pf["units"], prog["dims"])
+        fr = Frame(fields, pf["resid"], prog["dims"], None, dev, bd)
+        e = max_err(fr.run(fr.sequential), fr.plain())
+        print(f"{bd}-bit program seed {seed} plane {prog['plane']} units "
+              f"{fields[prog['plane']].shape[0]}: max_abs_err {e}")
+        err = max(err, e)
+    for name in ("hbd_10i.webm", "hbd_12i.webm", "hbd_444x10.webm"):
+        fr = Frame.key_frame(os.path.join(SMOKE, name), dev)
+        e = max_err(fr.run(fr.wavefront), fr.plain())
+        print(f"{name} frame 0 ({fr.bd}-bit): "
+              f"{sum(f.shape[0] for f in fr.fields)} units, wavefront "
+              f"max_abs_err {e}")
+        err = max(err, e)
+    fr = Frame.key_frame(HBD_4K, dev)
+    check(fr.bd == 10, f"{HBD_4K}: bit depth {fr.bd}")
+    first = fr.run(fr.wavefront)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = fr.plain()
+    torch.cuda.synchronize()
+    fr.plain_ms = (time.perf_counter() - t0) * 1e3
+    e = max_err(first, want)
+    err = max(err, e)
+    for k in range(5):
+        check(all(torch.equal(a, b) for a, b in
+                  zip(fr.run(fr.wavefront), first)),
+              f"4K 10-bit wavefront run {k} differs from the first")
+    print(f"4K 10-bit frame 0: {sum(f.shape[0] for f in fr.fields)} units, "
+          f"wavefront max_abs_err {e} (plain version {fr.plain_ms:.1f} ms), "
+          "5 more wavefront runs bit-equal to the first")
+    check(err == 0, f"strip kernel at 10 and 12 bits max_abs_err {err}")
+    return err, fr
 
 
 SCAN_CASES = [("intrabc", 301), ("intrabc", 303), ("intrabc", 302),
@@ -325,33 +395,39 @@ def zero_planes(dims, dev):
     return [torch.zeros(d, dtype=torch.int32, device=dev) for d in dims]
 
 
-def check_mc(dev):
+def check_mc(dev, programs=MC_PROGRAMS):
     """Phase 1: kernels 6a and 6b on random MC programs of every unit
-    kind, against their plain versions, tolerance 0; then 20 runs of 6b
-    on the last 1080p program, each bit-equal to the first.  Returns (6a
-    error, 6b error, the last 1080p program)."""
+    kind (`programs`: (seed, width, height[, bit depth]), 8 bits where
+    none is given), against their plain versions, tolerance 0; then 20
+    runs of 6b on the last 1080p program, each bit-equal to the first,
+    and at 10 and 12 bits 20 runs of 6a too.  Returns (6a error, 6b
+    error, the last 1080p program)."""
     err_mc = err_obmc = 0
-    for seed, width, height in MC_PROGRAMS:
-        prog = random_mc_program(seed, width, height)
+    for seed, width, height, *depth in programs:
+        bd = depth[0] if depth else 8
+        prog = random_mc_program(seed, width, height, bd=bd)
+        prog["bd"] = bd
         resid, refs = mc_inputs(prog, dev)
         plan = prog["plan"]
         got = inter_mc.mc_units(zero_planes(prog["dims"], dev), resid, refs,
-                                plan, 8)
+                                plan, bd)
         want = inter_mc.mc_units_plain(zero_planes(prog["dims"], dev), resid,
-                                       refs, plan, 8)
+                                       refs, plan, bd)
         e_mc = max_err(got, want)
-        got = inter_mc.obmc(got, resid, refs, plan, 8)
-        want = inter_mc.obmc_plain(want, resid, refs, plan, 8)
+        mc_only = [g.clone() for g in got]
+        got = inter_mc.obmc(got, resid, refs, plan, bd)
+        want = inter_mc.obmc_plain(want, resid, refs, plan, bd)
         e_ob = max_err(got, want)
         if (width, height) == (1920, 1080):
-            last = (prog, got)
+            last = (prog, got, mc_only)
 
         def n(name):
             return sum(v.shape[0] for v in plan[name].values())
 
         n_masked = sum(int((v[:, P_MODE] == 1).sum())
                        for v in plan["pairs"].values())
-        print(f"MC program seed {seed} {width}x{height}: {n('singles')} single, "
+        print(f"MC program seed {seed} {width}x{height} {bd}-bit: "
+              f"{n('singles')} single, "
               f"{n('pairs')} pair ({n_masked} masked), {n('warps')} warp, "
               f"{n('obmc_above') + n('obmc_left')} OBMC overlay units, "
               f"{n('obmc_resid')} OBMC blocks, "
@@ -361,25 +437,36 @@ def check_mc(dev):
         err_mc, err_obmc = max(err_mc, e_mc), max(err_obmc, e_ob)
     check(err_mc == 0 and err_obmc == 0,
           f"MC kernels vs plain max_abs_err {err_mc}, {err_obmc}")
-    prog, first = last
+    prog, first, mc_first = last
+    bd = prog["bd"]
     resid, refs = mc_inputs(prog, dev)
     base = inter_mc.mc_units(zero_planes(prog["dims"], dev), resid, refs,
-                             prog["plan"], 8)
+                             prog["plan"], bd)
     tabs = inter_mc.upload(inter_mc.obmc_tables(prog["plan"]), dev)
     for k in range(20):
         again = inter_mc.obmc_launch([b.clone() for b in base], resid, refs,
-                                     tabs, 8)
+                                     tabs, bd)
         check(all(torch.equal(a, b) for a, b in zip(again, first)),
               f"6b run {k} differs from the first")
-    print(f"MC program seed {MC_PROGRAMS[2][0]}: {tabs['n_tiles']} tiles, "
-          "20 runs of 6b bit-equal to the first")
+    runs = "6b"
+    if bd > 8:
+        mc_tabs = inter_mc.upload(inter_mc.mc_tables(prog["plan"]), dev)
+        for k in range(20):
+            again = inter_mc.mc_launch(zero_planes(prog["dims"], dev), resid,
+                                       refs, mc_tabs, bd)
+            check(all(torch.equal(a, b) for a, b in zip(again, mc_first)),
+                  f"{bd}-bit 6a run {k} differs from the first")
+        runs = "6a and of 6b"
+    print(f"MC program {prog['dims'][0][1]}x{prog['dims'][0][0]} {bd}-bit: "
+          f"{tabs['n_tiles']} tiles, 20 runs of {runs} bit-equal to the "
+          "first")
     return err_mc, err_obmc, prog
 
 
 def capture_inter(path, index, dev):
     """The device inputs of a stream's first inter frame from frame
     `index` on that has pred units, decoded through the port: {"dims",
-    "resid", "plan", "refs"} of its MC, and {"fields", "masks",
+    "resid", "plan", "refs", "bd"} of its MC, and {"fields", "masks",
     "schedule", "base"} of its strip kernel launch ("base": a copy of
     the MC planes it starts from)."""
     got, cur = {}, {}
@@ -387,7 +474,7 @@ def capture_inter(path, index, dev):
 
     def spy_motion(self, resid, plan, refs):
         cur.update(n=cur.get("n", 0) + 1, dims=self.dims, resid=resid,
-                   plan=plan, refs=refs)
+                   plan=plan, refs=refs, bd=self.bd)
         return motion(self, resid, plan, refs)
 
     def spy_intra(self, planes, fields, resid, masks, schedule):
@@ -410,7 +497,7 @@ def strip_inter(c, base=None):
     """The strip kernel on a captured inter frame's units, in place on
     `base` (default: a copy of its MC planes)."""
     return intra_strip.strip_exec_frame(
-        c["fields"], c["resid"], c["dims"], 8, c["schedule"],
+        c["fields"], c["resid"], c["dims"], c["bd"], c["schedule"],
         base if base is not None else [b.clone() for b in c["base"]],
         c["masks"])
 
@@ -456,6 +543,32 @@ def check_inter_frames(dev):
     return err, e, caps
 
 
+def check_inter_hbd(dev):
+    """Phase 1: the uint16 6a on an inter frame of the 4K 10-bit stream,
+    and the strip kernel on that frame's pred units in place on its MC
+    planes, against their plain versions.  Returns (6a error, strip
+    kernel error, the captured frame)."""
+    c = capture_inter(HBD_4K, 2, dev)
+    check(c["bd"] == 10 and c["refs"][0][0].dtype == torch.uint16,
+          f"{HBD_4K}: bit depth {c['bd']}, refs {c['refs'][0][0].dtype}")
+    c["tabs"] = inter_mc.upload(inter_mc.mc_tables(c["plan"]), dev)
+    got = inter_mc.mc_launch(zero_planes(c["dims"], dev), c["resid"],
+                             c["refs"], c["tabs"], 10)
+    want = inter_mc.mc_units_plain(zero_planes(c["dims"], dev), c["resid"],
+                                   c["refs"], c["plan"], 10)
+    e_mc = max_err(got, want)
+    e_strip = max_err(strip_inter(c), intra_strip.strip_exec_frame_plain(
+        c["fields"], c["resid"], c["dims"], 10,
+        [b.clone() for b in c["base"]], c["masks"]))
+    print(f"4K 10-bit inter frame {c['n']}: {c['tabs']['n_tiles']} tiles, "
+          f"uint16 6a max_abs_err {e_mc}; "
+          f"{sum(f.shape[0] for f in c['fields'])} pred units, strip kernel "
+          f"in place on the MC planes max_abs_err {e_strip}")
+    check(e_mc == 0 and e_strip == 0,
+          f"4K 10-bit inter frame: 6a {e_mc}, strip kernel {e_strip}")
+    return e_mc, e_strip, c
+
+
 HASH_DIMS = [[(1080, 1920), (540, 960), (540, 960)],     # 1080p 4:2:0
              [(67, 131), (34, 66), (34, 66)], [(1, 1)], [(3, 1031)],
              [(135, 241), (135, 241), (135, 241)]]
@@ -464,13 +577,17 @@ HASH_DIMS = [[(1080, 1920), (540, 960), (540, 960)],     # 1080p 4:2:0
 def check_hash(dev):
     """Phase 1: the frame hash kernel against its plain version and
     against `api.frame_hash` of the same planes on the host, on seeded
-    uint8 planes: whole tensors, and views that start off a 4-byte
-    boundary with pitched rows.  Returns the largest difference between
-    the kernel's hash and the plain version's (tolerance 0)."""
-    err = 0
+    uint8 and uint16 (10- and 12-bit) planes: whole tensors, and views
+    that start off a 16-byte boundary with pitched rows; 20 runs on the
+    1080p planes of each type bit-equal to the first.  Returns the largest
+    difference between the kernel's hash and the plain version's
+    (tolerance 0) for each sample type, {"uint8": e, "uint16": e}."""
+    err = {"uint8": 0, "uint16": 0}
     rng = np.random.default_rng(77)
-    for dims in HASH_DIMS:
-        host = [rng.integers(0, 256, d).astype(np.uint8) for d in dims]
+    for dims, dt, top in [(d, np.uint8, 256) for d in HASH_DIMS] + \
+            [(d, np.uint16, 1024) for d in HASH_DIMS] + \
+            [(HASH_DIMS[0], np.uint16, 4096)]:
+        host = [rng.integers(0, top, d).astype(dt) for d in dims]
         planes = [torch.from_numpy(p).to(dev) for p in host]
         cases = [("whole", planes)]
         if dims[0][0] > 2 and dims[0][1] > 8:
@@ -480,16 +597,19 @@ def check_hash(dev):
             torch.cuda.synchronize()
             plain = resident.hash_value(resident.frame_hash_plain(pl))
             want = frame_hash([t.cpu().numpy() for t in pl])
-            print(f"frame hash {dims[0][1]}x{dims[0][0]} x{len(dims)} {what}: "
+            print(f"frame hash {dims[0][1]}x{dims[0][0]} x{len(dims)} "
+                  f"{np.dtype(dt).name} {what}: "
                   f"kernel {got:#010x}, plain {plain:#010x}, host "
                   f"{want:#010x}")
             check(plain == want, "plain hash differs from api.frame_hash")
-            err = max(err, abs(got - plain))
-    first = resident.hash_value(resident.frame_hash_device(planes))
-    for k in range(20):
-        check(resident.hash_value(resident.frame_hash_device(planes))
-              == first, f"hash run {k} differs from the first")
-    check(err == 0, f"hash kernel vs plain differ by {err} (tolerance 0)")
+            err[np.dtype(dt).name] = max(err[np.dtype(dt).name],
+                                         abs(got - plain))
+        first = resident.hash_value(resident.frame_hash_device(planes))
+        for k in range(20 if dims is HASH_DIMS[0] else 0):
+            check(resident.hash_value(resident.frame_hash_device(planes))
+                  == first, f"hash run {k} differs from the first")
+    check(not any(err.values()),
+          f"hash kernel vs plain differ by {err} (tolerance 0)")
     return err
 
 
@@ -630,19 +750,43 @@ STREAMS = [("1080p intra", INTRA_1080, 30, (30, 0, 0)),
             os.path.join(SMOKE, "comp_masked_320x192.webm"), 10, (10, 9, 0)),
            ("wedge compound 320x192",
             os.path.join(SMOKE, "comp_wedge_320x192.webm"), 12, (13, 12, 0))]
+# the 10- and 12-bit streams: uint16 frames, the kernels' uint16
+# instantiations
+HBD_STREAMS = [("4K 10-bit", HBD_4K, 8, (8, 7, 0)),
+               ("10-bit intra 96x96",
+                os.path.join(SMOKE, "hbd_10i.webm"), 4, (4, 0, 0)),
+               ("10-bit inter 96x96",
+                os.path.join(SMOKE, "hbd_10p.webm"), 4, (4, 3, 0)),
+               ("10-bit deblocking + CDEF 128x96",
+                os.path.join(SMOKE, "hbd_10pf.webm"), 4, (4, 3, 0)),
+               ("12-bit intra 96x96",
+                os.path.join(SMOKE, "hbd_12i.webm"), 4, (4, 0, 0)),
+               ("12-bit inter 96x96",
+                os.path.join(SMOKE, "hbd_12p.webm"), 8, (8, 7, 0)),
+               ("10-bit 4:4:4 96x96",
+                os.path.join(SMOKE, "hbd_444x10.webm"), 4, (4, 3, 0)),
+               ("10-bit film grain 160x128",
+                os.path.join(SMOKE, "hbd_10fg.webm"), 3, (3, 2, 0)),
+               ("12-bit film grain 160x128",
+                os.path.join(SMOKE, "hbd_12fg.webm"), 3, (3, 2, 0)),
+               # compound, OBMC and warps at 10 and 12 bits
+               ("10-bit inter modes 96x96",
+                os.path.join(SMOKE, "hbd_modes10_96x96.webm"), 8, (8, 7, 6)),
+               ("12-bit inter modes 96x96",
+                os.path.join(SMOKE, "hbd_modes12_96x96.webm"), 8, (8, 7, 6))]
 # the resident decode runs at most this many frames of a stream
 RESIDENT_FRAMES = 12
 
 
-def main_path():
+def main_path(streams):
     """Phase 2: the port's main path, hash-equal to native C, each
     stream with the launch counts set to 0 just before it and read just
     after; then the resident decode of the same stream, its device
     hashes against those of the frames pulled through the API, with the
     hash kernel's launches counted.  Returns the launches of each
-    kernel over all streams."""
+    kernel over the streams."""
     total = dict.fromkeys(COUNTERS, 0)
-    for name, path, n, want in STREAMS:
+    for name, path, n, want in streams:
         easyav1_tpu_torch.stats.update(frames=0, fallbacks=0)
         reset_counts()
         port, _ = decode_hashes(
@@ -683,7 +827,6 @@ def main_path():
         check(frame_hash(frames[-1].data) == port[m - 1],
               f"resident {name}: the last frame's planes, pulled, differ")
         total["frame_hash"] += c["frame_hash"]
-    check(all(v > 0 for v in total.values()), f"a kernel never ran: {total}")
     return total
 
 
@@ -763,11 +906,12 @@ class Footprint:
 
     def window(self, p, refs, f, slot, y0, x0, y1, x1):
         """Reference windows [y0, y1) x [x0, x1) of units f, clamped to
-        the edge of each unit's slot as the kernels clamp them."""
+        the edge of each unit's slot as the kernels clamp them; a
+        reference pixel is its sample's bytes (1, or 2 above 8 bits)."""
         for s in np.unique(f[:, slot]):
             rh, rw = refs[p][s].shape
             k = f[:, slot] == s
-            self.add(("ref", p, int(s)), (rh, rw), 1,
+            self.add(("ref", p, int(s)), (rh, rw), refs[p][s].element_size(),
                      np.clip(y0[k], 0, rh - 1), np.clip(x0[k], 0, rw - 1),
                      np.clip(y1[k] - 1, 0, rh - 1) + 1,
                      np.clip(x1[k] - 1, 0, rw - 1) + 1)
@@ -805,7 +949,7 @@ def _taps_ops(h):
 def mc_bound(plan, refs, dims):
     """(ms, bound_by) of the least time for 6a's work on one frame: its
     tables read once, the reference pixels its units' windows cover
-    read once (1 byte each), the residual under the units that add it
+    read once (1 byte each, 2 above 8 bits), the residual under the units that add it
     read once (2 bytes a pixel) and the int32 pixels the units write
     written once, at the HBM rate; against the integer operations of
     its units (8-tap across and down, rounding, residual, clip; pairs
@@ -1017,6 +1161,19 @@ def stage_timings(inp, dev):
           f"restoration of three planes {lr_ms:.3f} ms, film grain of three "
           f"planes {fg_ms:.3f} ms after {fg_host_ms:.3f} ms of host "
           f"templates and LUTs (host clock)")
+    # byte bounds: each plane the stage reads read once, each plane it
+    # writes written once (superres: int32 in and out, at the output
+    # width; LR: the planes and the deblocked snapshot in, int32 out;
+    # grain: the uint8 planes in and out)
+    sr_bytes = sum(p.shape[0] * (p.shape[1] + dw) * 4
+                   for p, _sw, dw in (inp["sr"][0], chroma, chroma))
+    lr_bytes = sum(3 * p.numel() * 4 for p in planes)
+    fg_bytes = sum(2 * t.numel() for t in u8)
+    for name, nbytes in (("superres", sr_bytes), ("loop restoration",
+                                                  lr_bytes),
+                         ("film grain", fg_bytes)):
+        print(f"  {name}: {nbytes / 1e6:.3f} MB, byte bound "
+              f"{nbytes / HBM_BYTES_PER_S * 1e6:.3f} us")
     pipe.stage_log = []
     try:
         decode_hashes(lambda: easyav1_tpu_torch.EasyAV1(LR_GRAIN_1080,
@@ -1053,6 +1210,115 @@ def stage_timings(inp, dev):
           f"{8 / native_s:.3f} fps (this host)")
 
 
+def hbd_timings(key, c, prog, dev):
+    """Phase 3: the 10- and 12-bit instantiations, back to back (CUDA
+    events), beside their bounds and plain versions: the strip kernel on
+    the 4K 10-bit key frame (wavefront; the kernels line's entry, with
+    the plain time of phase 1) and on the pred units of its inter frame
+    `c`, the uint16 6a on that
+    frame, the uint16 6b on the random 10-bit 1080p program `prog`, the
+    hash kernel on a 4K 10-bit frame's uint16 planes; then the stages of
+    the 4K 10-bit stream's inter frames and its port, resident and native
+    fps."""
+    out = {}
+    wave = cuda_ms(lambda: key.run(key.wavefront), 10)
+    bound, nbytes, by = key.bound_ms()
+    out["strip"] = {"ms": wave, "plain_ms": key.plain_ms, "bound_ms": bound,
+                    "bound_by": by}
+    print(f"4K 10-bit key frame strip kernel ("
+          f"{sum(f.shape[0] for f in key.fields)} units): wavefront "
+          f"{wave:.3f} ms, plain version {key.plain_ms:.1f} ms, bound "
+          f"{bound * 1e3:.3f} us ({nbytes / 1e6:.2f} MB, {by})")
+    planes = [b.clone() for b in c["base"]]
+    ms = cuda_ms(lambda: strip_inter(c, planes), 20)
+    plain = cuda_ms(lambda: intra_strip.strip_exec_frame_plain(
+        c["fields"], c["resid"], c["dims"], 10,
+        [b.clone() for b in c["base"]], c["masks"]), 2)
+    bound, by = strip_inter_bound(c)
+    print(f"4K 10-bit inter frame {c['n']} strip kernel on its "
+          f"{sum(f.shape[0] for f in c['fields'])} pred units: {ms:.4f} ms, "
+          f"plain version {plain:.3f} ms, bound {bound * 1e3:.4f} us ({by})")
+    planes = zero_planes(c["dims"], dev)
+    ms = cuda_ms(lambda: inter_mc.mc_launch(planes, c["resid"], c["refs"],
+                                            c["tabs"], 10), 20)
+    plain = cuda_ms(lambda: inter_mc.mc_units_plain(
+        zero_planes(c["dims"], dev), c["resid"], c["refs"], c["plan"], 10), 2)
+    bound, by = mc_bound(c["plan"], c["refs"], c["dims"])
+    out["mc"] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                 "bound_by": by}
+    print(f"4K 10-bit inter frame {c['n']} MC (uint16 6a): {ms:.4f} ms, "
+          f"{c['tabs']['n_tiles']} tiles, plain version {plain:.3f} ms, "
+          f"bound {bound:.4f} ms ({by})")
+    resid, refs = mc_inputs(prog, dev)
+    bd, plan = prog["bd"], prog["plan"]
+    tabs = inter_mc.upload(inter_mc.obmc_tables(plan), dev)
+    planes = zero_planes(prog["dims"], dev)
+    ms = cuda_ms(lambda: inter_mc.obmc_launch(planes, resid, refs, tabs, bd),
+                 20)
+    plain = cuda_ms(lambda: inter_mc.obmc_plain(planes, resid, refs, plan,
+                                                bd), 2)
+    bound, by = obmc_bound(plan, refs, prog["dims"])
+    out["obmc"] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                   "bound_by": by}
+    print(f"random 1080p {bd}-bit OBMC program, uint16 6b over "
+          f"{tabs['n_tiles']} tiles: {ms:.4f} ms, plain version "
+          f"{plain:.3f} ms, bound {bound:.4f} ms ({by})")
+    _, _, _, frames = resident.decode_resident(HBD_4K, "cuda", max_frames=1)
+    planes = frames[0].data.device_planes
+    check([(tuple(p.shape), p.dtype) for p in planes]
+          == [((2160, 3840), torch.uint16)] + [((1080, 1920), torch.uint16)]
+          * 2, "4K 10-bit planes")
+    check(resident.hash_value(resident.frame_hash_device(planes))
+          == resident.hash_value(resident.frame_hash_plain(planes))
+          == frame_hash(frames[0].data),
+          "hash of a 4K 10-bit frame: kernel, plain and host differ")
+    ms = cuda_ms(lambda: resident.frame_hash_device(planes), 50)
+    plain = cuda_ms(lambda: resident.frame_hash_plain(planes), 5)
+    nbytes = sum(p.numel() * 2 for p in planes) + 4
+    bound, by = _bound(nbytes, 4 * (nbytes - 4) // 2)
+    out["hash"] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                   "bound_by": by}
+    print(f"frame hash of a 4K 10-bit frame ({nbytes / 1e6:.2f} MB): kernel "
+          f"{ms:.4f} ms, plain version {plain:.4f} ms, bound "
+          f"{bound * 1e3:.4f} us ({by})")
+    pipe.stage_log = []
+    try:
+        decode_hashes(lambda: easyav1_tpu_torch.EasyAV1(HBD_4K, device="cuda"))
+        log = [d for d in pipe.stage_log if "mc" in d]
+        key_log = pipe.stage_log[0]
+    finally:
+        pipe.stage_log = None
+    stages = ("entropy", "plan", "prepare", "upload", "mc", "intra",
+              "lf_cdef", "lr", "tail")
+    med = {k: sorted(d.get(k, 0.0) for d in log)[len(log) // 2] * 1e3
+           for k in stages}
+    print("4K 10-bit stream stages (ms, host clock, device synchronised at "
+          "each stage's end), key frame: "
+          + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in key_log.items()))
+    print(f"  median over its {len(log)} inter frames: "
+          + ", ".join(f"{k} {med[k]:.3f}" for k in stages)
+          + f"; total {sum(med.values()):.3f}")
+    _, port_s = decode_hashes(
+        lambda: easyav1_tpu_torch.EasyAV1(HBD_4K, device="cuda"))
+    _, native_s = decode_hashes(lambda: native_session(HBD_4K))
+    _, res_s, _, _ = resident.decode_resident(HBD_4K, "cuda")
+    print(f"4K 10-bit 8 frames: port {8 / port_s:.3f} fps, resident decode "
+          f"{8 / res_s:.3f} fps, native C session {8 / native_s:.3f} fps "
+          f"(this host)")
+    return out
+
+
+def kernel_entry(name, source, replaces, launches, err, t):
+    """One entry of the kernels line; t: {"ms", "plain_ms", "bound_ms",
+    "bound_by"} from this run."""
+    return {"name": name, "route": "cuda",
+            "source": f"easyav1_tpu_torch/csrc/{source}",
+            "replaces": f"easyav1_tpu/video/av1/recon/{replaces}",
+            "launches": launches, "max_abs_err": err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -1067,47 +1333,54 @@ def main():
     build()
     err, frames = check_kernel(dev)
     err = max(err, check_scan_units(dev))
+    err_hbd, hbd_key = check_kernel_hbd(dev)
     err_mc, err_obmc, prog = check_mc(dev)
+    err_mc16, err_obmc16, prog16 = check_mc(dev, MC_PROGRAMS_16)
     err_frame, err_strip, caps = check_inter_frames(dev)
     err = max(err, err_strip)
+    err_frame16, err_strip16, cap16 = check_inter_hbd(dev)
+    err_hbd = max(err_hbd, err_strip16)
     err_hash = check_hash(dev)
     stage_inputs = check_torch_stages(dev)
-    launches = main_path()
+    # the main path: the 8-bit streams, then the 10- and 12-bit ones (the
+    # kernels' uint16 instantiations); each stream's counts are set to 0
+    # just before it and read just after
+    launches = main_path(STREAMS)
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel never ran on the 8-bit streams: {launches}")
+    launches16 = main_path(HBD_STREAMS)
+    check(all(v > 0 for v in launches16.values()),
+          f"a kernel never ran on the 10- and 12-bit streams: {launches16}")
+    print(f"main path launches: 8-bit streams {launches}, 10- and 12-bit "
+          f"streams {launches16}")
     t = timings(frames, dev)
     ti = inter_timings(caps, prog, dev)
     th = hash_timings(dev)
     stage_timings(stage_inputs, dev)
-    print(json.dumps({"kernels": [{
-        "name": "intra_strip", "route": "cuda",
-        "source": "easyav1_tpu_torch/csrc/intra_strip.cu",
-        "replaces": "easyav1_tpu/video/av1/recon/intra_pallas.py:66",
-        "launches": launches["intra_strip"], "max_abs_err": err,
-        "ms": t["1080p"]["wavefront_ms"], "plain_ms": t["plain_ms"],
-        "bound_ms": t["1080p"]["bound_ms"],
-        "bound_by": t["1080p"]["bound_by"],
-        "library_ms": None}, {
-        "name": "inter_mc", "route": "cuda",
-        "source": "easyav1_tpu_torch/csrc/inter_mc.cu",
-        "replaces": "easyav1_tpu/video/av1/recon/mc_jax.py:636",
-        "launches": launches["inter_mc"],
-        "max_abs_err": max(err_mc, err_frame),
-        "ms": ti["1080p"]["ms"], "plain_ms": ti["mc_plain_ms"],
-        "bound_ms": ti["1080p"]["bound_ms"],
-        "bound_by": ti["1080p"]["bound_by"], "library_ms": None}, {
-        "name": "obmc", "route": "cuda",
-        "source": "easyav1_tpu_torch/csrc/inter_mc.cu",
-        "replaces": "easyav1_tpu/video/av1/recon/mc_jax.py:681",
-        "launches": launches["obmc"], "max_abs_err": err_obmc,
-        "ms": ti["obmc"]["ms"], "plain_ms": ti["obmc"]["plain_ms"],
-        "bound_ms": ti["obmc"]["bound_ms"],
-        "bound_by": ti["obmc"]["bound_by"], "library_ms": None}, {
-        "name": "frame_hash", "route": "cuda",
-        "source": "easyav1_tpu_torch/csrc/frame_hash.cu",
-        "replaces": "easyav1_tpu/video/av1/recon/resident.py:31",
-        "launches": launches["frame_hash"], "max_abs_err": err_hash,
-        "ms": th["ms"], "plain_ms": th["plain_ms"],
-        "bound_ms": th["bound_ms"], "bound_by": th["bound_by"],
-        "library_ms": None}]}))
+    t16 = hbd_timings(hbd_key, cap16, prog16, dev)
+    strip = dict(t["1080p"], ms=t["1080p"]["wavefront_ms"],
+                 plain_ms=t["plain_ms"])
+    mc = dict(ti["1080p"], plain_ms=ti["mc_plain_ms"])
+    print(json.dumps({"kernels": [
+        kernel_entry("intra_strip", "intra_strip.cu", "intra_pallas.py:66",
+                     launches["intra_strip"], err, strip),
+        kernel_entry("inter_mc", "inter_mc.cu", "mc_jax.py:636",
+                     launches["inter_mc"], max(err_mc, err_frame), mc),
+        kernel_entry("obmc", "inter_mc.cu", "mc_jax.py:681",
+                     launches["obmc"], err_obmc, ti["obmc"]),
+        kernel_entry("frame_hash", "frame_hash.cu", "resident.py:31",
+                     launches["frame_hash"], err_hash["uint8"], th),
+        kernel_entry("intra_strip_hbd", "intra_strip.cu",
+                     "intra_pallas.py:66", launches16["intra_strip"],
+                     err_hbd, t16["strip"]),
+        kernel_entry("inter_mc_u16", "inter_mc.cu", "mc_jax.py:636",
+                     launches16["inter_mc"], max(err_mc16, err_frame16),
+                     t16["mc"]),
+        kernel_entry("obmc_u16", "inter_mc.cu", "mc_jax.py:681",
+                     launches16["obmc"], err_obmc16, t16["obmc"]),
+        kernel_entry("frame_hash_u16", "frame_hash.cu", "resident.py:31",
+                     launches16["frame_hash"], err_hash["uint16"],
+                     t16["hash"])]}))
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.split(".")[0] == "easyav1_tpu")
     check(not leaked, f"imported {leaked}")

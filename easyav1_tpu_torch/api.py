@@ -100,7 +100,8 @@ class EasyAV1:
         self.device = resolve_device(device)
         # frames stay on the device: `frame.data` downloads a frame's
         # planes when first indexed, `frame.data.device_planes` are the
-        # uint8 tensors (see recon/resident.py)
+        # tensors, uint8 at 8 bits and uint16 above, as `frame.data`'s
+        # numpy planes are (see recon/resident.py)
         self.resident = bool(resident) and self.device is not None
         self.settings = settings.copy() if settings else default_settings()
         if close_handle_on_destroy is not None:

@@ -1,5 +1,6 @@
-// Position-weighted 32-bit hash of a frame's uint8 planes for Hopper
-// (sm_90a): one launch a frame over all planes.
+// Position-weighted 32-bit hash of a frame's planes for Hopper (sm_90a):
+// one launch a frame over all planes, uint8 (8-bit frames) or uint16
+// (10- and 12-bit frames) samples.
 //
 // Replaces easyav1_tpu/video/av1/recon/resident.py:31-50 (_hash_kernel,
 // an XLA-jitted function).  For each plane p [ph, pw],
@@ -9,19 +10,31 @@
 // It equals `resident.frame_hash_host` (the port's `api.frame_hash`) on
 // the same planes.
 //
-// What bounds it: bytes.  Each pixel is read once (3.11 MB for a 1080p
-// 4:2:0 frame, under a microsecond at 3.35 TB/s) and costs two integer
-// multiply-adds; the output is one word.  In plain torch ops the same
-// function needs int64 index grids, products and masks (torch has no
-// uint32 arithmetic): some fifteen launches and 8 bytes a pixel and more
-// of traffic.  Here a fixed grid walks the rows of all planes, a warp
-// reads a row's aligned middle as 4-byte words (a row's unaligned head
-// and tail by bytes), each thread keeps one partial sum a plane, a CTA
-// reduces them by warp shuffles and shared memory and adds them to the
-// planes' words with one atomicAdd a plane: uint32 addition commutes, so
-// the result does not depend on the order the CTAs finish in.  The last
-// CTA to finish (a ticket counter) folds the planes' words into the
-// hash.
+// What bounds it: bytes.  Each sample is read once (3.11 MB for a 1080p
+// 8-bit 4:2:0 frame, 24.9 MB for a 4K 10-bit one: 0.93 and 7.4 us at
+// 3.35 TB/s); the output is one word.  The first design read rows as
+// 4-byte words, a CTA a row, and each thread had two or three loads in
+// flight: it ran at 17x its byte bound on a 1080p frame.  This one:
+//
+// - The sum splits into three sums that need no per-sample weight:
+//   s_p = A + 2654435761 B + 40503 C (mod 2^32) with A = sum v,
+//   B = sum r v, C = sum c v.  A thread keeps A, B and C of each plane;
+//   a 16-byte chunk of n samples from column c adds S = sum v_k and
+//   c S + sum k v_k, a row segment adds r times its S to B.
+// - Loads are 16 bytes (uint4), the aligned middle of a row segment of
+//   2048 bytes: a warp takes a segment, each lane up to four chunks,
+//   all four loads issued before any is used (HASH_SEG_BYTES).  The
+//   segment's samples before its first 16-byte boundary and after its
+//   last are read one by one (rows of a view, or of an odd pitch, start
+//   anywhere).
+// - A fixed grid of two CTAs an SM walks the segments of all planes by
+//   the grid's stride (HASH_CTAS_PER_SM; on a 4K 10-bit frame two beat
+//   four by some 15% and eight by 35%, tools/torch_hash_variants.py); a
+//   CTA reduces its threads' values by warp shuffles and shared memory
+//   and adds them to the planes' words with one atomicAdd a plane:
+//   uint32 addition commutes, so the result does not depend on the order
+//   the CTAs finish in.  The last CTA to finish (a ticket counter) folds
+//   the planes' words into the hash.
 //
 // Scratch layout, `words` (uint32[8], zeroed by the caller before the
 // launch): [0..2] the planes' sums, [3] the ticket counter, [4] the hash.
@@ -31,22 +44,37 @@
 
 namespace {
 
+// Design switches, for tools/torch_hash_variants.py.
+#ifndef HASH_SEG_BYTES      // a warp's row segment: 32 lanes x 4 x 16 bytes
+#define HASH_SEG_BYTES 2048
+#endif
+#ifndef HASH_CTAS_PER_SM    // the fixed grid, in CTAs an SM
+#define HASH_CTAS_PER_SM 2
+#endif
+
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxPlanes = 3;
+constexpr int kSegBytes = HASH_SEG_BYTES;
+constexpr int kLaneChunks = kSegBytes / (32 * 16);  // 16-byte loads a lane
+constexpr int kCtasPerSm = HASH_CTAS_PER_SM;
+static_assert(kSegBytes % 512 == 0, "whole 16-byte chunks for every lane");
 constexpr uint32_t kRowK = 2654435761u;
 constexpr uint32_t kColK = 40503u;
 constexpr uint32_t kFnv = 16777619u;
 constexpr uint32_t kSeed = 2166136261u;
 
 struct Plane {
-  const uint8_t* p;
-  int h, w, pitch;
+  const void* p;
+  int h, w, pitch;  // pitch in samples
+  int spr;          // segments a row
+  int first;        // the plane's first segment
 };
 
 struct Args {
   Plane pl[kMaxPlanes];
   int np;
-  int rows;  // all planes' rows together
+  int segs;         // all planes' segments together
 };
 
 __device__ __forceinline__ uint32_t warp_sum(uint32_t v) {
@@ -55,51 +83,108 @@ __device__ __forceinline__ uint32_t warp_sum(uint32_t v) {
   return v;
 }
 
+// (S, sum k v_k) of the samples of a 16-byte chunk, k from 0.
+__device__ __forceinline__ void chunk_sums(const uint4 q, uint8_t, uint32_t& s,
+                                           uint32_t& d) {
+  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+  s = d = 0u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t sj = __dp4a(w[j], 0x01010101u, 0u);
+    d += 4u * j * sj + __dp4a(w[j], 0x03020100u, 0u);
+    s += sj;
+  }
+}
+
+__device__ __forceinline__ void chunk_sums(const uint4 q, uint16_t,
+                                           uint32_t& s, uint32_t& d) {
+  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+  s = d = 0u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t lo = w[j] & 0xffffu, hi = w[j] >> 16;
+    s += lo + hi;
+    d += 2u * j * (lo + hi) + hi;
+  }
+}
+
+// Adds the samples of segment `seg` of plane row `r` to (S, C) of this
+// lane: S = sum v, C = sum c v over the lane's samples.
+template <typename T>
+__device__ __forceinline__ void segment(const Plane& pl, int r, int seg,
+                                        int lane, uint32_t& S, uint32_t& C) {
+  constexpr int kSamples = kSegBytes / sizeof(T);   // a segment's samples
+  constexpr int kChunk = 16 / sizeof(T);            // a chunk's samples
+  const T* line = static_cast<const T*>(pl.p) + (size_t)r * pl.pitch;
+  const int c0 = seg * kSamples;
+  const int c1 = min(c0 + kSamples, pl.w);
+  // samples before the first 16-byte boundary at or after column c0
+  const int mis = (int)(reinterpret_cast<uintptr_t>(line + c0) & 15u);
+  const int head = min((int)((16 - mis) & 15) / (int)sizeof(T), c1 - c0);
+  const int nchunks = (c1 - c0 - head) / kChunk;
+  const int ca = c0 + head;                         // first aligned column
+  const uint4* mid = reinterpret_cast<const uint4*>(line + ca);
+  uint4 q[kLaneChunks];
+#pragma unroll
+  for (int j = 0; j < kLaneChunks; ++j)
+    if (lane + 32 * j < nchunks) q[j] = __ldg(mid + lane + 32 * j);
+#pragma unroll
+  for (int j = 0; j < kLaneChunks; ++j) {
+    const int k = lane + 32 * j;
+    if (k < nchunks) {
+      uint32_t s, d;
+      chunk_sums(q[j], T(), s, d);
+      S += s;
+      C += (uint32_t)(ca + k * kChunk) * s + d;
+    }
+  }
+  // the head, and the tail after the last whole chunk
+  const int ct = ca + nchunks * kChunk;
+  const int c = lane < head ? c0 + lane : ct + lane - head;
+  if (lane < head || (c < c1 && lane - head < kChunk)) {
+    const uint32_t v = line[c];
+    S += v;
+    C += (uint32_t)c * v;
+  }
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 frame_hash_kernel(Args a, uint32_t* __restrict__ words) {
-  uint32_t acc[kMaxPlanes] = {0u, 0u, 0u};
-  // a CTA takes every gridDim.x-th row of the planes laid end to end
-  for (int row = blockIdx.x; row < a.rows; row += gridDim.x) {
-    int p = 0, r = row;
-    while (p < a.np - 1 && r >= a.pl[p].h) r -= a.pl[p++].h;
-    const Plane pl = a.pl[p];
-    const uint8_t* line = pl.p + (size_t)r * pl.pitch;
-    const uint32_t base = 1u + (uint32_t)r * kRowK;
-    // bytes up to the first 4-byte boundary, then words, then the tail
-    int head = (int)((4u - ((uintptr_t)line & 3u)) & 3u);
-    if (head > pl.w) head = pl.w;
-    const int nwords = (pl.w - head) >> 2;
-    uint32_t s = 0u;
-    if (threadIdx.x < head)
-      s += line[threadIdx.x] * (base + (uint32_t)threadIdx.x * kColK);
-    const uint32_t* mid = reinterpret_cast<const uint32_t*>(line + head);
-    for (int i = threadIdx.x; i < nwords; i += kThreads) {
-      const uint32_t v = __ldg(mid + i);
-      const uint32_t wt = base + (uint32_t)(head + 4 * i) * kColK;
-      s += (v & 0xffu) * wt + ((v >> 8) & 0xffu) * (wt + kColK) +
-           ((v >> 16) & 0xffu) * (wt + 2u * kColK) +
-           (v >> 24) * (wt + 3u * kColK);
-    }
-    const int c = head + 4 * nwords + threadIdx.x;
-    if (c < pl.w) s += line[c] * (base + (uint32_t)c * kColK);
-    // a constant index keeps the partial sums in registers
+  // per plane: A = sum v, B = sum r v, C = sum c v of this lane's samples
+  uint32_t A[kMaxPlanes] = {0u, 0u, 0u}, B[kMaxPlanes] = {0u, 0u, 0u},
+           C[kMaxPlanes] = {0u, 0u, 0u};
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int g = blockIdx.x * kWarps + warp; g < a.segs;
+       g += gridDim.x * kWarps) {
+    int p = 0;
+    while (p < a.np - 1 && g >= a.pl[p + 1].first) ++p;
+    const Plane& pl = a.pl[p];
+    const int local = g - pl.first;
+    const int r = local / pl.spr, seg = local - r * pl.spr;
+    uint32_t S = 0u, Cs = 0u;
+    segment<T>(pl, r, seg, lane, S, Cs);
+    // a constant index keeps the sums in registers
 #pragma unroll
     for (int q = 0; q < kMaxPlanes; ++q)
-      if (q == p) acc[q] += s;
+      if (q == p) {
+        A[q] += S;
+        B[q] += (uint32_t)r * S;
+        C[q] += Cs;
+      }
   }
 
-  __shared__ uint32_t part[kMaxPlanes][kThreads / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __shared__ uint32_t part[kMaxPlanes][kWarps];
 #pragma unroll
   for (int p = 0; p < kMaxPlanes; ++p) {
-    const uint32_t v = warp_sum(acc[p]);
+    const uint32_t v = warp_sum(A[p] + kRowK * B[p] + kColK * C[p]);
     if (lane == 0) part[p][warp] = v;
   }
   __syncthreads();
   if (threadIdx.x == 0) {
     for (int p = 0; p < a.np; ++p) {
       uint32_t v = 0u;
-      for (int w = 0; w < kThreads / 32; ++w) v += part[p][w];
+      for (int w = 0; w < kWarps; ++w) v += part[p][w];
       if (v != 0u) atomicAdd(&words[p], v);
     }
     __threadfence();
@@ -115,28 +200,40 @@ frame_hash_kernel(Args a, uint32_t* __restrict__ words) {
 
 }  // namespace
 
-// planes[p]: uint8 [h[p], w[p]] with row pitch[p] bytes, np of them (1 to
-// 3); words: uint32[8] on the device, zeroed.  Returns cudaGetLastError().
+// planes[p]: [h[p], w[p]] samples of `sample_bytes` bytes (1: uint8, 2:
+// uint16) with a row pitch of pitch[p] samples, np of them (1 to 3), each
+// aligned to its sample size; words: uint32[8] on the device, zeroed.
+// Returns cudaGetLastError().
 extern "C" int frame_hash_launch(int np, const void* const* planes,
                                  const int* h, const int* w, const int* pitch,
-                                 void* words, void* stream) {
-  if (np < 1 || np > kMaxPlanes) return cudaErrorInvalidValue;
+                                 int sample_bytes, void* words, void* stream) {
+  if (np < 1 || np > kMaxPlanes || (sample_bytes != 1 && sample_bytes != 2))
+    return cudaErrorInvalidValue;
+  const int seg_samples = kSegBytes / sample_bytes;
   Args a = {};
   a.np = np;
   for (int p = 0; p < np; ++p) {
-    if (h[p] < 0 || w[p] < 0 || pitch[p] < w[p]) return cudaErrorInvalidValue;
-    a.pl[p] = {static_cast<const uint8_t*>(planes[p]), h[p], w[p], pitch[p]};
-    a.rows += h[p];
+    if (h[p] < 0 || w[p] < 0 || pitch[p] < w[p]
+        || reinterpret_cast<uintptr_t>(planes[p]) % sample_bytes)
+      return cudaErrorInvalidValue;
+    const int spr = (w[p] + seg_samples - 1) / seg_samples;
+    a.pl[p] = {planes[p], h[p], w[p], pitch[p], spr, a.segs};
+    a.segs += h[p] * spr;
   }
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  int grid = sms * 8;
-  if (grid > a.rows) grid = a.rows;
+  int grid = sms * kCtasPerSm;
+  const int want = (a.segs + kWarps - 1) / kWarps;
+  if (grid > want) grid = want;
   if (grid < 1) grid = 1;
-  frame_hash_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<uint32_t*>(words));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint32_t* out = static_cast<uint32_t*>(words);
+  if (sample_bytes == 1)
+    frame_hash_kernel<uint8_t><<<grid, kThreads, 0, s>>>(a, out);
+  else
+    frame_hash_kernel<uint16_t><<<grid, kThreads, 0, s>>>(a, out);
   return cudaGetLastError();
 }

@@ -18,7 +18,19 @@
 // residual is added (unless the unit's nores is set: OBMC and
 // interintra blocks blend first), clipped, and stored.  Writes and
 // residual reads are clipped to the unpadded, mi-aligned int32 planes.
-// All arithmetic is integer, exact.
+// All arithmetic is integer, exact.  The shifts are the spec's (7.11.3.2)
+// and depend on the bit depth: at 12 bits the horizontal pass rounds at
+// >> 5 and a single prediction at >> 9, and the blends shift 2 less
+// (InterPostRound 2, not 4); at 8 and 10 bits they are as above.
+//
+// Sample types.  The references are uint8 planes at 8 bits and uint16
+// planes at 10 and 12 bits: each kernel is a template on the sample
+// type, built once for both (inter_mc_launch and obmc_launch take
+// uint8, inter_mc_launch16 and obmc_launch16 uint16).  A uint16 window
+// is twice the bytes, so its instantiation runs 7 warps a CTA, not 8,
+// to keep its static shared memory under 48 KB; with the spec's
+// rounding the int16 intermediate holds at every depth (8 taps on
+// 12-bit samples stay within -7166..23546 after the >> 5).
 //
 // What bounds it.  By the card's rates, bytes: a frame's units write
 // each int32 pixel once and read about a byte and a half of reference
@@ -45,14 +57,15 @@
 //   CTA.  No barrier joins the warps after the first, so a warp whose
 //   unit is invalid just goes on.
 // - While a warp computes a tile, the next tile's windows are on their
-//   way: cp.async in aligned 4-byte pieces into the second of two sets
-//   of window buffers (a pair stages both its windows together).  A
-//   window that crosses the reference's border takes the clamped path,
-//   byte by byte.
-// - Windows stay uint8 in shared memory, the intermediate is int16 (8
-//   taps on 8-bit pixels stay within +-5865 after the >> 3).  A lane
-//   runs four horizontal outputs from 11 window bytes in registers, and
-//   up to eight vertical outputs down a column from 15 intermediates.
+//   way: cp.async in aligned 4-byte pieces (four uint8 or two uint16
+//   samples) into the second of two sets of window buffers (a pair
+//   stages both its windows together).  A window that crosses the
+//   reference's border takes the clamped path, sample by sample.
+// - Windows stay in the sample type in shared memory, the intermediate
+//   is int16 (8 taps on 8-bit pixels stay within +-5865 after the >> 3).
+//   A lane runs four horizontal outputs from 11 window samples in
+//   registers, and up to eight vertical outputs down a column from 15
+//   intermediates.
 // - Only live taps.  A window is staged from its first to its last
 //   nonzero tap; a pass whose filter is the single tap 128 (whole-pixel
 //   motion in that direction) takes that tap alone.  What was not staged
@@ -93,8 +106,8 @@
 // The launch, as a macro so that a host build can run the kernels
 // (tools/torch_mc_host_run.py).
 #ifndef MC_LAUNCH
-#define MC_LAUNCH(kernel, grid, stream, ...) \
-  kernel<<<grid, THREADS, 0, stream>>>(__VA_ARGS__)
+#define MC_LAUNCH(kernel, grid, threads, stream, ...) \
+  kernel<<<grid, threads, 0, stream>>>(__VA_ARGS__)
 #endif
 
 namespace {
@@ -112,20 +125,33 @@ enum { B_KIND, B_PLANE, B_W, B_H, B_UNIT, B_TILE, B_MASK, NB = 8 };
 enum { K_X, K_Y, K_OV, K_NA, K_NL, NK };
 enum { O_W = NS, O_H, NOV };
 
-constexpr int THREADS = 32 * MC_WARPS;
+// Warps a CTA, and the samples of a window buffer: 39 rows x 20, or
+// 23 x 28, of uint8; 39 x 16, or 23 x 24, of uint16 (win_pitch).  The
+// uint16 windows are twice the bytes: 7 warps keep the static shared
+// memory at 45,920 bytes, and 8 would pass the 48 KB limit.
+template <typename T> constexpr int kWarps = sizeof(T) == 1 ? MC_WARPS : 7;
+template <typename T> constexpr int kWinElems = sizeof(T) == 1 ? 784 : 624;
 constexpr int MAXB = 512;        // inter_mc.MAX_BUCKETS
-constexpr int WIN_BYTES = 784;   // 39 rows x 20 bytes, or 23 x 28
 constexpr int MID_ELEMS = 416;   // 23 rows x 18 int16, or 39 x 10
 constexpr int WF_ELEMS = 193 * 8;
 
+template <typename T>
 struct Frame {
   int32_t* out[3];          // [ph, pw] planes, written in place
   const int16_t* resid[3];  // [ph, pw]
-  const uint8_t* ref[3][8]; // [rh, rw] logical reference planes per slot
+  const T* ref[3][8];       // [rh, rw] logical reference planes per slot
   int ph[3], pw[3];
   int rw[3], rh[3];         // the references' logical dims (= row pitch)
   int bd;
 };
+
+// InterRound0: 5 at 12 bits, else 3 (a constant for uint8); a single
+// prediction rounds at 14 - InterRound0, the blends InterPostRound =
+// 7 - InterRound0 later than at 8 bits.
+template <typename T>
+__device__ __forceinline__ int round0(const Frame<T>& F) {
+  return sizeof(T) == 1 ? 3 : (F.bd == 12 ? 5 : 3);
+}
 
 struct Tabs {               // the sections of the upload buffer
   const int32_t* buckets;   // [nb, NB]
@@ -173,11 +199,16 @@ __device__ __forceinline__ int tile_h(int w, int h) {
   const int m = w < 16 ? 32 : 16;
   return h < m ? h : m;
 }
-// Row pitch of a window (bytes) and of the intermediate (int16) of a
-// tile tw wide: up to 3 bytes of alignment, tw + 7 pixels, and a lane's
-// 11-byte read from the last group of four.
+// Samples a 4-byte piece holds.
+template <typename T> constexpr int kPiece = 4 / sizeof(T);
+
+// Row pitch of a window (samples) and of the intermediate (int16) of a
+// tile tw wide: up to kPiece - 1 samples of alignment, tw + 7 pixels,
+// and a lane's 11-sample read from the last group of four; rows start
+// on 4-byte boundaries.
+template <typename T>
 __device__ __forceinline__ int win_pitch(int tw) {
-  return tw < 8 ? 16 : tw + 12;
+  return sizeof(T) == 1 ? (tw < 8 ? 16 : tw + 12) : (tw < 8 ? 12 : tw + 8);
 }
 __device__ __forceinline__ int mid_pitch(int tw) { return tw + 2; }
 
@@ -216,8 +247,9 @@ __device__ __forceinline__ Item find(const Tabs& T, const int* first,
 
 // One prediction of a rect: where its window's tap 0 of pixel (0, 0)
 // lies in the reference, its taps and their live ranges.
+template <typename T>
 struct Pred {
-  const uint8_t* ref;
+  const T* ref;
   int x0, y0;
   int fh[8], fv[8];
   int c0, c1, r0, r1;       // first and last live tap across, down
@@ -241,11 +273,12 @@ __device__ __forceinline__ void live_taps(const int* f, int& a, int& b) {
 // p: slot, ix, iy; taps: fh[8], fv[8] (a single unit's from S_SLOT and
 // S_FH, a pair's prediction from P_PRED0 or P_PRED1 and 3 on); (dx, dy):
 // the rect's offset in the unit.
-__device__ __forceinline__ Pred load_pred(const Frame& F, int pl,
-                                          const int32_t* p,
-                                          const int32_t* taps, int dx,
-                                          int dy) {
-  Pred P;
+template <typename T>
+__device__ __forceinline__ Pred<T> load_pred(const Frame<T>& F, int pl,
+                                             const int32_t* p,
+                                             const int32_t* taps, int dx,
+                                             int dy) {
+  Pred<T> P;
   P.ref = F.ref[pl][__ldg(p)];
   P.x0 = __ldg(p + 1) + dx - 3;
   P.y0 = __ldg(p + 2) + dy - 3;
@@ -259,39 +292,44 @@ __device__ __forceinline__ Pred load_pred(const Frame& F, int pl,
   return P;
 }
 
-// Where row r of a window starts in its shared-memory row: the low two
-// bits of the address of reference pixel (y0 + r, x0), so that aligned
-// 4-byte pieces of the reference land on aligned words.
-__device__ __forceinline__ int row_shift(const Pred& P, int rw, int r) {
+// Where row r of a window starts in its shared-memory row: the offset,
+// in samples, of reference pixel (y0 + r, x0) within its 4-byte word,
+// so that aligned 4-byte pieces of the reference land on aligned words.
+template <typename T>
+__device__ __forceinline__ int row_shift(const Pred<T>& P, int rw, int r) {
   return (static_cast<int>(reinterpret_cast<uintptr_t>(P.ref) & 3)
-          + (P.y0 + r) * rw + P.x0) & 3;
+          / static_cast<int>(sizeof(T)) + (P.y0 + r) * rw + P.x0)
+         & (kPiece<T> - 1);
 }
 
 // Stages the live rows and columns of the (ih + 7) x (iw + 7) window of
-// P into win: byte row_shift + c of row r holds reference pixel
+// P into win: sample row_shift + c of row r holds reference pixel
 // (y0 + r, x0 + c), clamped to the reference.  Asynchronous where the
 // window lies inside the reference; the caller commits and waits.
-__device__ __forceinline__ void stage(const Pred& P, int rw, int rh, int iw,
-                                      int ih, int wp, uint8_t* win,
+template <typename T>
+__device__ __forceinline__ void stage(const Pred<T>& P, int rw, int rh,
+                                      int iw, int ih, int wp, T* win,
                                       int lane) {
+  constexpr int S = kPiece<T>;
   const int cs = P.c0, ncols = iw + P.c1 - P.c0;
   const int rs = P.r0, nrows = ih + P.r1 - P.r0;
   const int xs = P.x0 + cs, ys = P.y0 + rs;
   if (MC_WIDE && xs >= 0 && xs + ncols <= rw && ys >= 1
       && ys + nrows <= rh - 1) {
-    // rows strictly inside: the up to 3 bytes read before and after a
-    // row's pixels stay in the plane
-    // 8 lanes a row (a row has at most 7 words), 4 where it has at
-    // most 4
-    const int ll = wp > 16 ? 3 : 2;
+    // rows strictly inside: the up to S - 1 samples read before and
+    // after a row's pixels stay in the plane
+    // 16 lanes a row where it has more than 8 words, 8 where it has 5
+    // to 8, 4 where it has at most 4
+    const int words = wp * static_cast<int>(sizeof(T)) / 4;
+    const int ll = words > 8 ? 4 : (words > 4 ? 3 : 2);
     for (int i = lane >> ll; i < nrows; i += 32 >> ll) {
       const int r = rs + i;
       const int off = row_shift(P, rw, r);
-      const int w = ((off + cs) >> 2) + (lane & ((1 << ll) - 1));
-      if (w < (off + cs + ncols + 3) >> 2)
-        cp_async4(win + r * wp + 4 * w,
+      const int w = (off + cs) / S + (lane & ((1 << ll) - 1));
+      if (w < (off + cs + ncols + S - 1) / S)
+        cp_async4(win + r * wp + S * w,
                   P.ref + (static_cast<ptrdiff_t>(P.y0 + r) * rw + P.x0 - off
-                           + 4 * w));
+                           + S * w));
     }
   } else {
     for (int k = lane; k < nrows * ncols; k += 32) {
@@ -304,10 +342,12 @@ __device__ __forceinline__ void stage(const Pred& P, int rw, int rh, int iw,
 }
 
 // The horizontal pass over the live rows of a staged window: mid[r][c] =
-// (sum_q win[r][c + q] fh[q] + 4) >> 3 for c < iw.
-__device__ __forceinline__ void hpass(const Pred& P, int rw, int iw, int ih,
-                                      int wp, int mp, const uint8_t* win,
-                                      int16_t* mid, int lane) {
+// (sum_q win[r][c + q] fh[q] + (1 << r0) / 2) >> r0 for c < iw.
+template <typename T>
+__device__ __forceinline__ void hpass(const Pred<T>& P, int rw, int iw,
+                                      int ih, int wp, int mp, const T* win,
+                                      int16_t* mid, int r0, int lane) {
+  const int rnd = 1 << (r0 - 1);
   const int rs = P.r0, nrows = ih + P.r1 - P.r0;
   const int gpr = (iw + 3) >> 2, lg = lg2(gpr);
   const bool pow2 = (1 << lg) == gpr;
@@ -315,23 +355,23 @@ __device__ __forceinline__ void hpass(const Pred& P, int rw, int iw, int ih,
   for (int k = lane; k < nrows * gpr; k += 32) {
     const int q = pow2 ? k >> lg : k / gpr;
     const int r = rs + q, c = (k - q * gpr) * 4;
-    const uint8_t* s = win + r * wp + row_shift(P, rw, r) + c;
+    const T* s = win + r * wp + row_shift(P, rw, r) + c;
     int16_t* d = mid + r * mp + c;
     if (one) {
 #pragma unroll
       for (int o = 0; o < 4; ++o)
         if (c + o < iw)
-          d[o] = static_cast<int16_t>((s[o + 3] * P.fh[3] + 4) >> 3);
+          d[o] = static_cast<int16_t>((s[o + 3] * P.fh[3] + rnd) >> r0);
     } else {
       int px[11];
 #pragma unroll
       for (int q = 0; q < 11; ++q) px[q] = s[q];
 #pragma unroll
       for (int o = 0; o < 4; ++o) {
-        int a = 4;
+        int a = rnd;
 #pragma unroll
         for (int q = 0; q < 8; ++q) a += px[o + q] * P.fh[q];
-        if (c + o < iw) d[o] = static_cast<int16_t>(a >> 3);
+        if (c + o < iw) d[o] = static_cast<int16_t>(a >> r0);
       }
     }
   }
@@ -341,7 +381,8 @@ __device__ __forceinline__ void hpass(const Pred& P, int rw, int iw, int ih,
 // (row0 + o, col), o < n <= 8, of a lane, where they lie in the rect
 // [dy, dy + ih) x [dx, dx + iw) of the tile that mid was made for; 0
 // elsewhere.
-__device__ __forceinline__ void vpass(const Pred& P, int dx, int dy, int iw,
+template <typename T>
+__device__ __forceinline__ void vpass(const Pred<T>& P, int dx, int dy, int iw,
                                       int ih, int mp, const int16_t* mid,
                                       int col, int row0, int n,
                                       int (&acc)[8]) {
@@ -392,16 +433,18 @@ __device__ __forceinline__ int rows_in(const Lane& L, int th, int x, int y,
 
 // The shared memory of a warp: two sets of two windows, one
 // intermediate.
+template <typename T>
 struct __align__(16) WarpMem {
-  uint8_t win[2][2][WIN_BYTES];
+  T win[2][2][kWinElems<T>];
   int16_t mid[MID_ELEMS];
 };
 
 // The reference position of a warp unit's window as a Pred (taps
 // unused, all live): 15 x 15 from (ix4 - 7, iy4 - 7).
-__device__ __forceinline__ Pred warp_pred(const Frame& F, int pl,
-                                          const int32_t* f) {
-  Pred P;
+template <typename T>
+__device__ __forceinline__ Pred<T> warp_pred(const Frame<T>& F, int pl,
+                                             const int32_t* f) {
+  Pred<T> P;
   P.ref = F.ref[pl][__ldg(f + W_SLOT)];
   P.x0 = __ldg(f + W_IX4) - 7;
   P.y0 = __ldg(f + W_IY4) - 7;
@@ -411,38 +454,42 @@ __device__ __forceinline__ Pred warp_pred(const Frame& F, int pl,
 }
 
 // Stages the windows of work index idx into window set `set` of m.
-__device__ __forceinline__ void stage_item(const Frame& F, const Tabs& T,
+template <typename T>
+__device__ __forceinline__ void stage_item(const Frame<T>& F, const Tabs& B,
                                            const int* first, int idx,
-                                           WarpMem& m, int set, int lane) {
-  const Item it = find(T, first, idx);
-  const int rw = F.rw[it.pl], rh = F.rh[it.pl], wp = win_pitch(it.tw);
+                                           WarpMem<T>& m, int set, int lane) {
+  const Item it = find(B, first, idx);
+  const int rw = F.rw[it.pl], rh = F.rh[it.pl], wp = win_pitch<T>(it.tw);
   if (it.kind == K_SINGLE) {
-    const int32_t* f = T.singles + static_cast<size_t>(it.unit) * NS;
+    const int32_t* f = B.singles + static_cast<size_t>(it.unit) * NS;
     if (!__ldg(f + S_VALID)) return;
-    const Pred P = load_pred(F, it.pl, f + S_SLOT, f + S_FH, it.ox, it.oy);
+    const Pred<T> P = load_pred(F, it.pl, f + S_SLOT, f + S_FH, it.ox,
+                                it.oy);
     stage(P, rw, rh, it.tw, it.th, wp, m.win[set][0], lane);
   } else if (it.kind == K_PAIR) {
-    const int32_t* f = T.pairs + static_cast<size_t>(it.unit) * NPR;
+    const int32_t* f = B.pairs + static_cast<size_t>(it.unit) * NPR;
     if (!__ldg(f + P_VALID)) return;
     for (int k = 0; k < 2; ++k) {
       const int32_t* p = f + (k ? P_PRED1 : P_PRED0);
-      const Pred P = load_pred(F, it.pl, p, p + 3, it.ox, it.oy);
+      const Pred<T> P = load_pred(F, it.pl, p, p + 3, it.ox, it.oy);
       stage(P, rw, rh, it.tw, it.th, wp, m.win[set][k], lane);
     }
   } else {
-    const int32_t* f = T.warps + static_cast<size_t>(it.unit) * NW;
+    const int32_t* f = B.warps + static_cast<size_t>(it.unit) * NW;
     if (!__ldg(f + W_VALID)) return;
     stage(warp_pred(F, it.pl, f), rw, rh, 8, 8, wp, m.win[set][0], lane);
   }
 }
 
 // One 8x8 warp unit from its staged window (mc_jax._mc_warp_kernel).
-__device__ __forceinline__ void warp_unit(const Frame& F, int pl,
+template <typename T>
+__device__ __forceinline__ void warp_unit(const Frame<T>& F, int pl,
                                           const int32_t* f,
-                                          const int16_t* wf, WarpMem& m,
+                                          const int16_t* wf, WarpMem<T>& m,
                                           int set, int lane) {
-  const Pred P = warp_pred(F, pl, f);
-  const int rw = F.rw[pl], wp = win_pitch(8), mp = mid_pitch(8);
+  const Pred<T> P = warp_pred(F, pl, f);
+  const int rw = F.rw[pl], wp = win_pitch<T>(8), mp = mid_pitch(8);
+  const int r0 = round0(F);
   const int sx4 = __ldg(f + W_SX4), sy4 = __ldg(f + W_SY4);
   const int alpha = __ldg(f + W_ALPHA), beta = __ldg(f + W_BETA);
   const int gamma = __ldg(f + W_GAMMA), delta = __ldg(f + W_DELTA);
@@ -450,11 +497,11 @@ __device__ __forceinline__ void warp_unit(const Frame& F, int pl,
     const int k = t >> 3, l = t & 7;
     const int16_t* c = wf + (((sx4 + beta * (k - 3) + alpha * l + 512) >> 10)
                              + 64) * 8;
-    const uint8_t* s = m.win[set][0] + k * wp + row_shift(P, rw, k) + l;
-    int a = 4;
+    const T* s = m.win[set][0] + k * wp + row_shift(P, rw, k) + l;
+    int a = 1 << (r0 - 1);
 #pragma unroll
     for (int q = 0; q < 8; ++q) a += s[q] * c[q];
-    m.mid[k * mp + l] = static_cast<int16_t>(a >> 3);
+    m.mid[k * mp + l] = static_cast<int16_t>(a >> r0);
   }
   __syncwarp();
   const int mx = (1 << F.bd) - 1;
@@ -463,39 +510,43 @@ __device__ __forceinline__ void warp_unit(const Frame& F, int pl,
     const int k = t >> 3, l = t & 7;
     const int16_t* c = wf + (((sy4 + delta * k + gamma * l + 512) >> 10)
                              + 64) * 8;
-    int a = 1024;
+    int a = 1 << (13 - r0);
 #pragma unroll
     for (int q = 0; q < 8; ++q) a += m.mid[(k + q) * mp + l] * c[q];
     const int yy = y + k, xx = x + l;
     if (yy < F.ph[pl] && xx < F.pw[pl]) {
       const size_t o = static_cast<size_t>(yy) * F.pw[pl] + xx;
-      F.out[pl][o] = clampi(clampi(a >> 11, 0, mx) + F.resid[pl][o], 0, mx);
+      F.out[pl][o] = clampi(clampi(a >> (14 - r0), 0, mx) + F.resid[pl][o],
+                            0, mx);
     }
   }
 }
 
 // Computes and stores work index idx from window set `set` of m.
-__device__ __forceinline__ void compute_item(const Frame& F, const Tabs& T,
+template <typename T>
+__device__ __forceinline__ void compute_item(const Frame<T>& F, const Tabs& B,
                                              const int* first,
                                              const int16_t* wf, int idx,
-                                             WarpMem& m, int set, int lane) {
-  const Item it = find(T, first, idx);
+                                             WarpMem<T>& m, int set,
+                                             int lane) {
+  const Item it = find(B, first, idx);
   const int pl = it.pl, rw = F.rw[pl];
   if (it.kind == K_WARP) {
-    const int32_t* f = T.warps + static_cast<size_t>(it.unit) * NW;
+    const int32_t* f = B.warps + static_cast<size_t>(it.unit) * NW;
     if (__ldg(f + W_VALID)) warp_unit(F, pl, f, wf, m, set, lane);
     return;
   }
   const bool pair = it.kind == K_PAIR;
-  const int32_t* f = pair ? T.pairs + static_cast<size_t>(it.unit) * NPR
-                          : T.singles + static_cast<size_t>(it.unit) * NS;
+  const int32_t* f = pair ? B.pairs + static_cast<size_t>(it.unit) * NPR
+                          : B.singles + static_cast<size_t>(it.unit) * NS;
   const int c_valid = pair ? int(P_VALID) : int(S_VALID);
   const int c_x = pair ? int(P_X) : int(S_X), c_y = pair ? int(P_Y) : int(S_Y);
   const int c_pred = pair ? int(P_PRED0) : int(S_SLOT);
   const int c_taps = pair ? int(P_PRED0) + 3 : int(S_FH);
   if (!__ldg(f + c_valid)) return;
-  const int wp = win_pitch(it.tw), mp = mid_pitch(it.tw);
+  const int wp = win_pitch<T>(it.tw), mp = mid_pitch(it.tw);
   const int mx = (1 << F.bd) - 1;
+  const int r0 = round0(F), ipr = 7 - r0;
   const Lane L = lane_map(it.tw, it.th, lane);
   const int x = __ldg(f + c_x) + it.ox + L.j;
   const int y = __ldg(f + c_y) + it.oy + L.r0;
@@ -509,22 +560,23 @@ __device__ __forceinline__ void compute_item(const Frame& F, const Tabs& T,
   for (int o = 0; o < 8; ++o) res[o] = o < nv && !nores ? rp[o * pw] : 0;
   int v[8];
   {
-    const Pred P = load_pred(F, pl, f + c_pred, f + c_taps, it.ox, it.oy);
-    hpass(P, rw, it.tw, it.th, wp, mp, m.win[set][0], m.mid, lane);
+    const Pred<T> P = load_pred(F, pl, f + c_pred, f + c_taps, it.ox,
+                                it.oy);
+    hpass(P, rw, it.tw, it.th, wp, mp, m.win[set][0], m.mid, r0, lane);
     __syncwarp();
     vpass(P, 0, 0, it.tw, it.th, mp, m.mid, L.j, L.r0, L.n, v);
   }
   if (pair) {
     int v1[8];
     __syncwarp();             // the intermediate is written again
-    const Pred P = load_pred(F, pl, f + P_PRED1, f + P_PRED1 + 3, it.ox,
-                             it.oy);
-    hpass(P, rw, it.tw, it.th, wp, mp, m.win[set][1], m.mid, lane);
+    const Pred<T> P = load_pred(F, pl, f + P_PRED1, f + P_PRED1 + 3, it.ox,
+                                it.oy);
+    hpass(P, rw, it.tw, it.th, wp, mp, m.win[set][1], m.mid, r0, lane);
     __syncwarp();
     vpass(P, 0, 0, it.tw, it.th, mp, m.mid, L.j, L.r0, L.n, v1);
     const bool masked = __ldg(f + P_MODE) == 1;
     const int w0 = __ldg(f + P_W0), w1 = __ldg(f + P_W1);
-    const uint8_t* mk = T.masks + it.mask
+    const uint8_t* mk = B.masks + it.mask
         + (static_cast<size_t>(__ldg(f + P_MIDX)) * it.h + it.oy + L.r0)
           * it.w + it.ox + L.j;
 #pragma unroll
@@ -532,15 +584,16 @@ __device__ __forceinline__ void compute_item(const Frame& F, const Tabs& T,
       const int p0 = (v[o] + 64) >> 7, p1 = (v1[o] + 64) >> 7;
       if (masked) {
         const int mm = o < nv ? __ldg(mk + o * it.w) : 0;
-        v[o] = (p0 * mm + p1 * (64 - mm) + 512) >> 10;
+        v[o] = (p0 * mm + p1 * (64 - mm) + (32 << ipr)) >> (ipr + 6);
       } else {
-        v[o] = (p0 * w0 + p1 * w1 + 128) >> 8;
+        v[o] = (p0 * w0 + p1 * w1 + (8 << ipr)) >> (ipr + 4);
       }
       v[o] = clampi(v[o], 0, mx);
     }
   } else {
 #pragma unroll
-    for (int o = 0; o < 8; ++o) v[o] = clampi((v[o] + 1024) >> 11, 0, mx);
+    for (int o = 0; o < 8; ++o)
+      v[o] = clampi((v[o] + (1 << (13 - r0))) >> (14 - r0), 0, mx);
   }
   int32_t* op = F.out[pl] + at;
 #pragma unroll
@@ -549,45 +602,48 @@ __device__ __forceinline__ void compute_item(const Frame& F, const Tabs& T,
 }
 
 // The buckets' first work indices, then the total, into shared memory.
-__device__ __forceinline__ void load_first(const Tabs& T, int* first) {
-  for (int k = threadIdx.x; k <= T.nb; k += THREADS)
-    first[k] = k < T.nb ? __ldg(T.buckets + k * NB + B_TILE) : T.total;
+__device__ __forceinline__ void load_first(const Tabs& B, int* first,
+                                           int threads) {
+  for (int k = threadIdx.x; k <= B.nb; k += threads)
+    first[k] = k < B.nb ? __ldg(B.buckets + k * NB + B_TILE) : B.total;
 }
 
 // Kernel 6a: each warp walks work indices, one tile of a single, pair
 // or warp unit each.
-__global__ void __launch_bounds__(THREADS, MC_CTAS_PER_SM)
-mc_kernel(Frame F, Tabs T, const int32_t* wf) {
+template <typename T>
+__global__ void __launch_bounds__(32 * kWarps<T>, MC_CTAS_PER_SM)
+mc_kernel(Frame<T> F, Tabs B, const int32_t* wf) {
+  constexpr int W = kWarps<T>;
   __shared__ int first[MAXB + 1];
   __shared__ int16_t swf[WF_ELEMS];
-  __shared__ WarpMem mem[MC_WARPS];
-  load_first(T, first);
-  if (T.n_warps)
-    for (int k = threadIdx.x; k < WF_ELEMS; k += THREADS)
+  __shared__ WarpMem<T> mem[W];
+  load_first(B, first, 32 * W);
+  if (B.n_warps)
+    for (int k = threadIdx.x; k < WF_ELEMS; k += 32 * W)
       swf[k] = static_cast<int16_t>(__ldg(wf + k));
   __syncthreads();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int stride = gridDim.x * MC_WARPS;
-  WarpMem& m = mem[warp];
+  const int stride = gridDim.x * W;
+  WarpMem<T>& m = mem[warp];
   int set = 0;
-  int idx = blockIdx.x * MC_WARPS + warp;
+  int idx = blockIdx.x * W + warp;
 #if MC_ASYNC
-  if (idx < T.total) stage_item(F, T, first, idx, m, 0, lane);
+  if (idx < B.total) stage_item(F, B, first, idx, m, 0, lane);
   cp_async_commit();
 #endif
-  for (; idx < T.total; idx += stride) {
+  for (; idx < B.total; idx += stride) {
 #if MC_ASYNC
-    if (idx + stride < T.total)
-      stage_item(F, T, first, idx + stride, m, set ^ 1, lane);
+    if (idx + stride < B.total)
+      stage_item(F, B, first, idx + stride, m, set ^ 1, lane);
     cp_async_commit();
     cp_async_wait<1>();       // all but the group just committed
 #else
-    stage_item(F, T, first, idx, m, set, lane);
+    stage_item(F, B, first, idx, m, set, lane);
     cp_async_commit();
     cp_async_wait<0>();
 #endif
     __syncwarp();
-    compute_item(F, T, first, swf, idx, m, set, lane);
+    compute_item(F, B, first, swf, idx, m, set, lane);
     __syncwarp();             // before the set is staged again
 #if MC_ASYNC
     set ^= 1;
@@ -619,22 +675,25 @@ __device__ __forceinline__ bool reach(const int32_t* f, int tx, int ty,
 // Kernel 6b: each warp walks work indices, one tile of an OBMC block
 // each.  masks: the OBMC masks of lengths 2..32, the one of length n at
 // offset n - 2.
-__global__ void __launch_bounds__(THREADS, MC_CTAS_PER_SM)
-obmc_kernel(Frame F, Tabs T, const int32_t* masks) {
+template <typename T>
+__global__ void __launch_bounds__(32 * kWarps<T>, MC_CTAS_PER_SM)
+obmc_kernel(Frame<T> F, Tabs B, const int32_t* masks) {
+  constexpr int W = kWarps<T>;
   __shared__ int first[MAXB + 1];
-  __shared__ WarpMem mem[MC_WARPS];
-  load_first(T, first);
+  __shared__ WarpMem<T> mem[W];
+  load_first(B, first, 32 * W);
   __syncthreads();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  WarpMem& m = mem[warp];
+  WarpMem<T>& m = mem[warp];
   const int mx = (1 << F.bd) - 1;
-  for (int idx = blockIdx.x * MC_WARPS + warp; idx < T.total;
-       idx += gridDim.x * MC_WARPS) {
-    const Item it = find(T, first, idx);
+  const int r0 = round0(F);
+  for (int idx = blockIdx.x * W + warp; idx < B.total;
+       idx += gridDim.x * W) {
+    const Item it = find(B, first, idx);
     const int pl = it.pl, rw = F.rw[pl], rh = F.rh[pl];
     const int pw = F.pw[pl], ph = F.ph[pl];
-    const int wp = win_pitch(it.tw), mp = mid_pitch(it.tw);
-    const int32_t* blk = T.singles + static_cast<size_t>(it.unit) * NK;
+    const int wp = win_pitch<T>(it.tw), mp = mid_pitch(it.tw);
+    const int32_t* blk = B.singles + static_cast<size_t>(it.unit) * NK;
     const int tx = __ldg(blk + K_X) + it.ox, ty = __ldg(blk + K_Y) + it.oy;
     const int ov0 = __ldg(blk + K_OV), na = __ldg(blk + K_NA);
     const int n_ov = na + __ldg(blk + K_NL);
@@ -656,11 +715,11 @@ obmc_kernel(Frame F, Tabs T, const int32_t* masks) {
       unsigned batch = 0;
       int cnt = 0;
       for (; k < n_ov && cnt < 4; ++k) {
-        const int32_t* f = T.pairs + static_cast<size_t>(ov0 + k) * NOV;
+        const int32_t* f = B.pairs + static_cast<size_t>(ov0 + k) * NOV;
         Rect R;
         if (!reach(f, tx, ty, it.tw, it.th, R)) continue;
-        const Pred P = load_pred(F, pl, f + S_SLOT, f + S_FH, R.x0 - R.ux,
-                                 R.y0 - R.uy);
+        const Pred<T> P = load_pred(F, pl, f + S_SLOT, f + S_FH, R.x0 - R.ux,
+                                    R.y0 - R.uy);
         stage(P, rw, rh, R.iw, R.ih, wp, m.win[cnt >> 1][cnt & 1], lane);
         batch |= static_cast<unsigned>(k) << (8 * cnt);
         ++cnt;
@@ -670,12 +729,13 @@ obmc_kernel(Frame F, Tabs T, const int32_t* masks) {
       __syncwarp();
       for (int i = 0; i < cnt; ++i) {
         const int kk = (batch >> (8 * i)) & 255;
-        const int32_t* f = T.pairs + static_cast<size_t>(ov0 + kk) * NOV;
+        const int32_t* f = B.pairs + static_cast<size_t>(ov0 + kk) * NOV;
         Rect R;
         reach(f, tx, ty, it.tw, it.th, R);
-        const Pred P = load_pred(F, pl, f + S_SLOT, f + S_FH, R.x0 - R.ux,
-                                 R.y0 - R.uy);
-        hpass(P, rw, R.iw, R.ih, wp, mp, m.win[i >> 1][i & 1], m.mid, lane);
+        const Pred<T> P = load_pred(F, pl, f + S_SLOT, f + S_FH, R.x0 - R.ux,
+                                    R.y0 - R.uy);
+        hpass(P, rw, R.iw, R.ih, wp, mp, m.win[i >> 1][i & 1], m.mid, r0,
+              lane);
         __syncwarp();
         int v[8];
         vpass(P, R.x0 - tx, R.y0 - ty, R.iw, R.ih, mp, m.mid, L.j, L.r0, L.n,
@@ -687,7 +747,8 @@ obmc_kernel(Frame F, Tabs T, const int32_t* masks) {
           if (o < nv && col_in && y + o >= R.y0 && y + o < R.y0 + R.ih) {
             const int mm = __ldg(masks + (left ? R.uw - 2 + x - R.ux
                                                : R.uh - 2 + y + o - R.uy));
-            const int p = clampi((v[o] + 1024) >> 11, 0, mx);
+            const int p = clampi((v[o] + (1 << (13 - r0))) >> (14 - r0), 0,
+                                 mx);
             cur[o] = (mm * cur[o] + (64 - mm) * p + 32) >> 6;
           }
         }
@@ -702,15 +763,16 @@ obmc_kernel(Frame F, Tabs T, const int32_t* masks) {
   }
 }
 
-Frame make_frame(int np, void* const* out, const void* const* resid,
-                 const int* ph, const int* pw, const void* const* refs,
-                 const int* rw, const int* rh, int bd) {
-  Frame F = {};
+template <typename T>
+Frame<T> make_frame(int np, void* const* out, const void* const* resid,
+                    const int* ph, const int* pw, const void* const* refs,
+                    const int* rw, const int* rh, int bd) {
+  Frame<T> F = {};
   for (int p = 0; p < np; ++p) {
     F.out[p] = static_cast<int32_t*>(out[p]);
     F.resid[p] = static_cast<const int16_t*>(resid[p]);
     for (int s = 0; s < 8; ++s)
-      F.ref[p][s] = static_cast<const uint8_t*>(refs[8 * p + s]);
+      F.ref[p][s] = static_cast<const T*>(refs[8 * p + s]);
     F.ph[p] = ph[p];
     F.pw[p] = pw[p];
     F.rw[p] = rw[p];
@@ -720,16 +782,62 @@ Frame make_frame(int np, void* const* out, const void* const* resid,
   return F;
 }
 
-// The fixed grid: enough CTAs for the work, at most MC_CTAS_PER_SM on
-// each SM of the current device.
-int grid_for(int total) {
+// The fixed grid: enough CTAs of `warps` warps for the work, at most
+// MC_CTAS_PER_SM on each SM of the current device.
+int grid_for(int total, int warps) {
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess
       || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
              != cudaSuccess || sms < 1)
     sms = 132;
-  const int want = (total + MC_WARPS - 1) / MC_WARPS;
+  const int want = (total + warps - 1) / warps;
   return want < sms * MC_CTAS_PER_SM ? want : sms * MC_CTAS_PER_SM;
+}
+
+template <typename T>
+int mc_launch_t(int np, void* const* out, const void* const* resid,
+                const int* ph, const int* pw, const void* const* refs,
+                const int* rw, const int* rh, const void* buf,
+                const int* layout, const void* wf, int bd, void* stream) {
+  if (np < 1 || np > 3 || layout[0] < 1 || layout[0] > MAXB || layout[1] < 1)
+    return cudaErrorInvalidValue;
+  const Frame<T> F = make_frame<T>(np, out, resid, ph, pw, refs, rw, rh, bd);
+  const int32_t* b = static_cast<const int32_t*>(buf);
+  Tabs B = {};
+  B.nb = layout[0];
+  B.total = layout[1];
+  B.buckets = b + layout[2];
+  B.singles = b + layout[3];
+  B.pairs = b + layout[4];
+  B.warps = b + layout[5];
+  B.masks = reinterpret_cast<const uint8_t*>(b + layout[6]);
+  B.n_warps = layout[7];
+  MC_LAUNCH(mc_kernel<T>, grid_for(B.total, kWarps<T>), 32 * kWarps<T>,
+            static_cast<cudaStream_t>(stream), F, B,
+            static_cast<const int32_t*>(wf));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int obmc_launch_t(int np, void* const* out, const void* const* resid,
+                  const int* ph, const int* pw, const void* const* refs,
+                  const int* rw, const int* rh, const void* buf,
+                  const int* layout, const void* masks, int bd,
+                  void* stream) {
+  if (np < 1 || np > 3 || layout[0] < 1 || layout[0] > MAXB || layout[1] < 1)
+    return cudaErrorInvalidValue;
+  const Frame<T> F = make_frame<T>(np, out, resid, ph, pw, refs, rw, rh, bd);
+  const int32_t* b = static_cast<const int32_t*>(buf);
+  Tabs B = {};
+  B.nb = layout[0];
+  B.total = layout[1];
+  B.buckets = b + layout[2];
+  B.singles = b + layout[3];
+  B.pairs = b + layout[4];
+  MC_LAUNCH(obmc_kernel<T>, grid_for(B.total, kWarps<T>), 32 * kWarps<T>,
+            static_cast<cudaStream_t>(stream), F, B,
+            static_cast<const int32_t*>(masks));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -747,22 +855,19 @@ extern "C" int inter_mc_launch(int np, void* const* out,
                                const int* rw, const int* rh, const void* buf,
                                const int* layout, const void* wf, int bd,
                                void* stream) {
-  if (np < 1 || np > 3 || layout[0] < 1 || layout[0] > MAXB || layout[1] < 1)
-    return cudaErrorInvalidValue;
-  const Frame F = make_frame(np, out, resid, ph, pw, refs, rw, rh, bd);
-  const int32_t* b = static_cast<const int32_t*>(buf);
-  Tabs T = {};
-  T.nb = layout[0];
-  T.total = layout[1];
-  T.buckets = b + layout[2];
-  T.singles = b + layout[3];
-  T.pairs = b + layout[4];
-  T.warps = b + layout[5];
-  T.masks = reinterpret_cast<const uint8_t*>(b + layout[6]);
-  T.n_warps = layout[7];
-  MC_LAUNCH(mc_kernel, grid_for(T.total), static_cast<cudaStream_t>(stream),
-            F, T, static_cast<const int32_t*>(wf));
-  return static_cast<int>(cudaGetLastError());
+  return mc_launch_t<uint8_t>(np, out, resid, ph, pw, refs, rw, rh, buf,
+                              layout, wf, bd, stream);
+}
+
+// Kernel 6a on uint16 reference planes (bd 10 or 12); as inter_mc_launch.
+extern "C" int inter_mc_launch16(int np, void* const* out,
+                                 const void* const* resid, const int* ph,
+                                 const int* pw, const void* const* refs,
+                                 const int* rw, const int* rh,
+                                 const void* buf, const int* layout,
+                                 const void* wf, int bd, void* stream) {
+  return mc_launch_t<uint16_t>(np, out, resid, ph, pw, refs, rw, rh, buf,
+                               layout, wf, bd, stream);
 }
 
 // Kernel 6b over one frame's OBMC blocks; buf: inter_mc.obmc_tables'
@@ -776,17 +881,17 @@ extern "C" int obmc_launch(int np, void* const* out,
                            const int* rw, const int* rh, const void* buf,
                            const int* layout, const void* masks, int bd,
                            void* stream) {
-  if (np < 1 || np > 3 || layout[0] < 1 || layout[0] > MAXB || layout[1] < 1)
-    return cudaErrorInvalidValue;
-  const Frame F = make_frame(np, out, resid, ph, pw, refs, rw, rh, bd);
-  const int32_t* b = static_cast<const int32_t*>(buf);
-  Tabs T = {};
-  T.nb = layout[0];
-  T.total = layout[1];
-  T.buckets = b + layout[2];
-  T.singles = b + layout[3];
-  T.pairs = b + layout[4];
-  MC_LAUNCH(obmc_kernel, grid_for(T.total), static_cast<cudaStream_t>(stream),
-            F, T, static_cast<const int32_t*>(masks));
-  return static_cast<int>(cudaGetLastError());
+  return obmc_launch_t<uint8_t>(np, out, resid, ph, pw, refs, rw, rh, buf,
+                                layout, masks, bd, stream);
+}
+
+// Kernel 6b on uint16 reference planes (bd 10 or 12); as obmc_launch.
+extern "C" int obmc_launch16(int np, void* const* out,
+                             const void* const* resid, const int* ph,
+                             const int* pw, const void* const* refs,
+                             const int* rw, const int* rh, const void* buf,
+                             const int* layout, const void* masks, int bd,
+                             void* stream) {
+  return obmc_launch_t<uint16_t>(np, out, resid, ph, pw, refs, rw, rh, buf,
+                                 layout, masks, bd, stream);
 }

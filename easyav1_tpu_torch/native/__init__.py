@@ -152,7 +152,9 @@ def film_grain_native(fg, seq, planes):
         for i, v in enumerate(vals):
             arr[i] = int(v)
     src = [np.asarray(pl) for pl in planes]
-    work = [np.ascontiguousarray(pl, np.uint16) for pl in src]
+    # copies: at 16 bits ascontiguousarray would hand back the caller's
+    # planes, and the grain would land in the reference frames
+    work = [np.array(pl, np.uint16) for pl in src]
     luma_orig = np.ascontiguousarray(src[0], np.uint16)
     ptrs = (ctypes.c_void_p * 3)()
     for i in range(3):

@@ -62,6 +62,18 @@ static void fg_scaling_lut(const int32_t *val, const int32_t *scl, int n,
     for (int i = val[n - 1]; i < 256; i++) lut[i] = scl[n - 1];
 }
 
+/* The scaling of a sample value (scale_lut, spec 7.18.3.5): above 8
+   bits the LUT's 256 entries are interpolated in the value's low bd - 8
+   bits.  The JAX package's decoder clips the value to 255 instead, so its
+   grain differs from dav1d's wherever a 10- or 12-bit sample exceeds
+   255. */
+static int fg_scale(const int32_t *lut, int v, int bd) {
+    if (bd == 8) return lut[v < 0 ? 0 : (v > 255 ? 255 : v)];
+    int sh = bd - 8, x = v >> sh, rem = v - (x << sh);
+    if (x >= 255) return lut[255];
+    return lut[x] + (((lut[x + 1] - lut[x]) * rem + (1 << (sh - 1))) >> sh);
+}
+
 /* AR neighborhood in coding order */
 static int fg_ar_positions(int lag, int (*pos)[2]) {
     int n = 0;
@@ -303,8 +315,7 @@ int av1_film_grain(const FgParams *fg, int bd, int ssx, int ssy,
                         int src = dst[(py + yy) * pstride + (px + xx)];
                         int scale, vmin, vmax;
                         if (plane == 0) {
-                            int ii = src < 0 ? 0 : (src > 255 ? 255 : src);
-                            scale = lut[ii];
+                            scale = fg_scale(lut, src, bd);
                             vmin = ymin; vmax = ymax;
                         } else {
                             int ly = (py + yy) << suby;
@@ -334,8 +345,7 @@ int av1_film_grain(const FgParams *fg, int bd, int ssx, int ssy,
                                 if (val > (1 << bd) - 1)
                                     val = (1 << bd) - 1;
                             }
-                            int ii = val < 0 ? 0 : (val > 255 ? 255 : val);
-                            scale = lut[ii];
+                            scale = fg_scale(lut, val, bd);
                             vmin = cmin; vmax = cmax;
                         }
                         int noise = (scale * g[yy * pb_w + xx]

@@ -834,7 +834,7 @@ static int find_warp_samples(Ctx *t, int r, int c, int bsize, int ref,
     }
     if (do_tl && avail_u && avail_l && n < 8 && WS_MATCH(r - 1, c - 1))
         WS_REC(r - 1, c - 1, 0, -1, 0, -1);
-    if (do_tr && n < 8 && has_tr(t, r, c, bsize)
+    if (do_tr && n < 8 && imax(w4, h4) <= 16 && has_tr(t, r, c, bsize)
         && c + w4 < t->p->col_end && WS_MATCH(r - 1, c + w4))
         WS_REC(r - 1, c + w4, 0, -1, w4, 1);
 #undef WS_MATCH

@@ -116,12 +116,16 @@ static void lr_box_filter(int r0, int h, int x0, int w, int pw,
                 b += lr_rsum[i][j + t];
                 a += lr_rsq[i][j + t];
             }
+            /* above 8 bits the variance takes the sums rounded to 8
+               bits, b2 the sum b itself (spec 7.17.3); the JAX package's
+               decoder rounds b for both, and differs from dav1d there */
+            int64_t d = b;
             if (bd > 8) {
                 int sh = 2 * (bd - 8);
                 a = (a + (1 << (sh - 1))) >> sh;
-                b = (b + (1 << (bd - 9))) >> (bd - 8);
+                d = (b + (1 << (bd - 9))) >> (bd - 8);
             }
-            int64_t p = a * n - b * b;
+            int64_t p = a * n - d * d;
             if (p < 0) p = 0;
             int64_t z = (p * s + (1 << 19)) >> 20;
             int64_t a2;

@@ -40,6 +40,14 @@ enum { MC_COMP_AVERAGE = 0, MC_COMP_DISTANCE = 1, MC_COMP_WEDGE = 2,
 enum { MC_FILTER_BILINEAR = 3 };
 enum { MC_GM_TRANSLATION = 1 };
 
+/* The spec's rounding (7.11.3.2): InterRound0 is 5 at 12 bits, else 3;
+   a single prediction's InterRound1 is 14 - InterRound0 (11, or 9 at 12
+   bits), a compound prediction's 7; the compound blends shift by
+   InterPostRound = 7 - InterRound0 (4, or 2 at 12 bits) more.  The JAX
+   package's decoder rounds as at 8 bits at every depth, so its 12-bit
+   inter frames differ from dav1d's by a few steps. */
+static inline int mc_round0(int bd) { return bd == 12 ? 5 : 3; }
+
 /* ---- subpel filters (recon_ref._mc_filter) ------------------------ */
 
 static const int16_t *mc_filter(int interp, int dim) {
@@ -55,6 +63,50 @@ static const int16_t *mc_filter(int interp, int dim) {
     default: return &av1_mc_filter_regular8[0][0];
     }
 }
+/* Subpel MC in both 8-tap passes as the spec writes them, with
+ * edge-replicating clamps and the rounding of mc_round0: single
+ * predictions clipped (into dst at row stride ds when dst != NULL, else
+ * into out), comp keeps the InterRound1 = 7 intermediate in out.  The
+ * 12-bit path and intrabc take it; the fast paths below are for the
+ * 8- and 10-bit rounding. */
+static void predict_inter_two_pass(const pel *ref, int rw, int rh, int rs,
+                                   int ix, int iy, int w, int h,
+                                   const int16_t *fh, const int16_t *fv,
+                                   int bd, int comp, int32_t *out, pel *dst,
+                                   int64_t ds) {
+    const int r0 = mc_round0(bd);
+    const int32_t mx = (1 << bd) - 1;
+    int32_t mid[(128 + 7) * 128];
+    for (int r = 0; r < h + 7; r++) {
+        int sy = iy - 3 + r;
+        sy = sy < 0 ? 0 : (sy > rh - 1 ? rh - 1 : sy);
+        const pel *row = ref + (int64_t)sy * rs;
+        for (int c = 0; c < w; c++) {
+            int32_t acc = 0;
+            for (int t = 0; t < 8; t++) {
+                int sx = ix - 3 + c + t;
+                sx = sx < 0 ? 0 : (sx > rw - 1 ? rw - 1 : sx);
+                acc += fh[t] * row[sx];
+            }
+            mid[r * w + c] = (acc + (1 << (r0 - 1))) >> r0;
+        }
+    }
+    for (int r = 0; r < h; r++)
+        for (int c = 0; c < w; c++) {
+            int32_t acc = 0;
+            for (int t = 0; t < 8; t++)
+                acc += fv[t] * mid[(r + t) * w + c];
+            if (comp) {
+                out[r * w + c] = (acc + 64) >> 7;
+            } else {
+                int32_t v = (acc + (1 << (13 - r0))) >> (14 - r0);
+                v = v < 0 ? 0 : (v > mx ? mx : v);
+                if (dst) dst[r * ds + c] = (pel)v;
+                else out[r * w + c] = v;
+            }
+        }
+}
+
 /* 8-tap separable subpel MC with edge-replicating clamps (spec
  * 7.11.3.2, no ref scaling).  comp: keep the InterRound1=7
  * compound-intermediate scale in `out` ([h][w] int32), no clipping.
@@ -176,7 +228,7 @@ static void predict_inter_u16_impl(const pel *ref, int rw, int rh,
             if (ix >= 0 && ix + w <= rw) {
                 if (comp)
                     for (int c = 0; c < w; c++)
-                        out[r * w + c] = row[ix + c] << 4;
+                        out[r * w + c] = row[ix + c] << (7 - mc_round0(bd));
                 else if (dst) {
                     pel *restrict o = dst + r * ds;
                     for (int c = 0; c < w; c++)
@@ -195,7 +247,8 @@ static void predict_inter_u16_impl(const pel *ref, int rw, int rh,
                 for (int c = 0; c < w; c++) {
                     int sx = ix + c;
                     sx = sx < 0 ? 0 : (sx > last_x ? last_x : sx);
-                    out[r * w + c] = comp ? (row[sx] << 4) : row[sx];
+                    out[r * w + c] = comp ? (row[sx] << (7 - mc_round0(bd)))
+                                          : row[sx];
                 }
             }
         }
@@ -206,6 +259,11 @@ static void predict_inter_u16_impl(const pel *ref, int rw, int rh,
     const int16_t *fv = mc_filter(interp[0], filt_h) + frac_y * 8;
     int32_t mx = (1 << bd) - 1;
 
+    if (bd == 12) {
+        predict_inter_two_pass(ref, rw, rh, rs, ix, iy, w, h, fh, fv, bd,
+                               comp, out, dst, ds);
+        return;
+    }
     if (frac_y == 0) {
         /* horizontal-only: the vertical identity filter is a *128, so
          * the two-stage rounding collapses exactly:
@@ -977,30 +1035,8 @@ static void predict_inter_i32(const pel *ref, int rw, int rh,
     }
     const int16_t *fh = mc_filter(interp[1], filt_w) + frac_x * 8;
     const int16_t *fv = mc_filter(interp[0], filt_h) + frac_y * 8;
-    int32_t mid[(128 + 7) * 128];
-    for (int r = 0; r < h + 7; r++) {
-        int sy = iy - 3 + r;
-        sy = sy < 0 ? 0 : (sy > last_y ? last_y : sy);
-        const pel *row = ref + (int64_t)sy * rw;
-        for (int c = 0; c < w; c++) {
-            int32_t acc = 0;
-            for (int t = 0; t < 8; t++) {
-                int sx = ix - 3 + c + t;
-                sx = sx < 0 ? 0 : (sx > last_x ? last_x : sx);
-                acc += fh[t] * row[sx];
-            }
-            mid[r * w + c] = (acc + 4) >> 3;
-        }
-    }
-    int32_t mx = (1 << bd) - 1;
-    for (int r = 0; r < h; r++)
-        for (int c = 0; c < w; c++) {
-            int32_t acc = 0;
-            for (int t = 0; t < 8; t++)
-                acc += fv[t] * mid[(r + t) * w + c];
-            int32_t v = (acc + 1024) >> 11;
-            out[r * w + c] = v < 0 ? 0 : (v > mx ? mx : v);
-        }
+    predict_inter_two_pass(ref, rw, rh, rw, ix, iy, w, h, fh, fv, bd, 0, out,
+                           NULL, 0);
 }
 
 /* ---- affine warp (warp.py warp_affine, spec 7.11.3.5) ------------- */
@@ -1011,6 +1047,7 @@ static void warp_affine_u16(const pel *ref, int rw, int rh,
                             int bd, int32_t *out /* [h][w] */) {
     int alpha = sh[0], beta = sh[1], gamma = sh[2], delta = sh[3];
     int last_x = rw - 1, last_y = rh - 1;
+    const int r0 = mc_round0(bd);
     int64_t mxpix = (1 << bd) - 1;
     for (int i = 0; i < h; i += 8)
         for (int j = 0; j < w; j += 8) {
@@ -1044,7 +1081,7 @@ static void warp_affine_u16(const pel *ref, int rw, int rh,
                         sxx = sxx < 0 ? 0 : (sxx > last_x ? last_x : sxx);
                         s += row[sxx] * co[m];
                     }
-                    tmp[k + 7][l + 4] = (s + 4) >> 3;  /* InterRound0 */
+                    tmp[k + 7][l + 4] = (s + (1 << (r0 - 1))) >> r0;
                     sx += alpha;
                 }
             }
@@ -1058,7 +1095,7 @@ static void warp_affine_u16(const pel *ref, int rw, int rh,
                     int32_t s = 0;
                     for (int m = 0; m < 8; m++)
                         s += tmp[k + m + 4][l + 4] * co[m];
-                    int64_t v = (s + 1024) >> 11;      /* InterRound1 */
+                    int64_t v = (s + (1 << (13 - r0))) >> (14 - r0);
                     out[(i + k + 4) * w + (j + l + 4)] =
                         (int32_t)(v < 0 ? 0 : (v > mxpix ? mxpix : v));
                     sy += gamma;
@@ -1161,7 +1198,7 @@ static void wedge_mask_c(int bsize, int wedge_idx, int wedge_sign,
 /* DIFFWTD mask from compound intermediates (wedge.py diffwtd_mask) */
 static void diffwtd_mask_c(const int32_t *p0, const int32_t *p1, int n,
                            int mask_type, int bd, int8_t *out) {
-    int sh = bd;
+    int sh = bd + 3 - mc_round0(bd);   /* (bd - 8) + InterPostRound + 4 */
     int rnd = 1 << (sh - 5);
     for (int i = 0; i < n; i++) {
         int d = p0[i] - p1[i];
@@ -1341,6 +1378,7 @@ static void predict_inter_scaled_u16(const pel *ref, int rw,
                          >> 10) + 8);
     static int32_t im[(2 * 128 + 16) * 128];
     int32_t mx = (1 << bd) - 1;
+    const int r0 = mc_round0(bd);
     int64_t row0 = start_y >> 10;
     for (int r = 0; r < inter_h; r++) {
         int sy = (int)(row0 + r - 3);
@@ -1356,7 +1394,7 @@ static void predict_inter_scaled_u16(const pel *ref, int rw,
                 sx = sx < 0 ? 0 : (sx > last_x ? last_x : sx);
                 acc += f[t] * row[sx];
             }
-            im[r * w + c] = (acc + 4) >> 3;             /* InterRound0 */
+            im[r * w + c] = (acc + (1 << (r0 - 1))) >> r0;
         }
     }
     int64_t fracy0 = start_y & 1023;
@@ -1371,7 +1409,7 @@ static void predict_inter_scaled_u16(const pel *ref, int rw,
             if (comp) {
                 out[r * w + c] = (acc + 64) >> 7;       /* InterRound1 */
             } else {
-                int32_t v = (acc + 1024) >> 11;
+                int32_t v = (acc + (1 << (13 - r0))) >> (14 - r0);
                 out[r * w + c] = v < 0 ? 0 : (v > mx ? mx : v);
             }
         }
@@ -1982,6 +2020,7 @@ static void recon_compound(Recon *rc, const int32_t *b) {
     int masked = comp_type == MC_COMP_WEDGE || comp_type == MC_COMP_DIFFWTD;
     int n_planes = (b[BLK_HASCHROMA] && rp->num_planes > 1) ? 3 : 1;
     int64_t mx = (1 << rp->bitdepth) - 1;
+    const int ipr = 7 - mc_round0(rp->bitdepth);    /* InterPostRound */
     int8_t mask_luma[128 * 128];
     int32_t mv0[2] = {b[BLK_MV_R], b[BLK_MV_C]};
     int32_t mv1[2] = {b[BLK_MV2_R], b[BLK_MV2_C]};
@@ -2029,7 +2068,7 @@ static void recon_compound(Recon *rc, const int32_t *b) {
                     int m = msk[r * pw + c];
                     int64_t v = ((int64_t)p0[r * pw + c] * m
                                  + (int64_t)p1[r * pw + c] * (64 - m)
-                                 + 512) >> 10;
+                                 + (32 << ipr)) >> (ipr + 6);
                     buf[(y + r) * rc->pw[plane] + (x + c)] =
                         (int32_t)(v < 0 ? 0 : (v > mx ? mx : v));
                 }
@@ -2038,7 +2077,7 @@ static void recon_compound(Recon *rc, const int32_t *b) {
                 for (int c = 0; c < w; c++) {
                     int64_t v = ((int64_t)p0[r * pw + c] * w0
                                  + (int64_t)p1[r * pw + c] * w1
-                                 + 128) >> 8;
+                                 + (8 << ipr)) >> (ipr + 4);
                     buf[(y + r) * rc->pw[plane] + (x + c)] =
                         (int32_t)(v < 0 ? 0 : (v > mx ? mx : v));
                 }

@@ -31,6 +31,7 @@ import torch
 from easyav1_tpu_torch import native as nat
 from easyav1_tpu_torch.container.webm import TrackType, WebMDemuxer
 from easyav1_tpu_torch.video.av1.recon.inter_exec import InterRecon
+from easyav1_tpu_torch.video.av1.recon.inter_mc import sample_dtype
 from easyav1_tpu_torch.video.av1.recon.intra_exec import IntraRecon
 from easyav1_tpu_torch.video.av1.recon.lr_torch import (LoopRestoration,
                                                         lr_plan)
@@ -78,8 +79,8 @@ class _Stages:
 
 
 class LazyPlanes:
-    """A frame's planes, uint8 on the device, as a sequence of numpy
-    planes that are downloaded when first indexed (the counterpart of
+    """A frame's planes on the device (uint8, or uint16 above 8 bits),
+    as a sequence of numpy planes that are downloaded when first indexed (the counterpart of
     the reference's `_LazyPlanes`).  With `eager` the download is made
     at once; without it (resident mode) a frame that is only hashed on
     the device (`device_planes`) never crosses to the host."""
@@ -117,48 +118,50 @@ class LazyPlanes:
 
 class DevRef:
     """One plane of a reference frame (the counterpart of the reference's
-    `_DevRef`, `native/__init__.py:1249-1271`): the uint8 [lh, lw] plane
-    on the device that MC reads, and the uint16 host plane that the C
-    recon and the diffwtd masks read.  A plane the device made has its
-    host plane made once, on demand: from the frame's `LazyPlanes` where
-    those are downloaded already, else by downloading this plane alone
-    (in resident mode the frame itself stays on the device); a plane
-    the C recon made is uploaded once, at its first use by MC.  The pipe
-    covers 8-bit frames only, so uint8 holds every sample."""
+    `_DevRef`, `native/__init__.py:1249-1271`): the [lh, lw] plane on the
+    device that MC reads, uint8 at 8 bits and uint16 above, and the
+    uint16 host plane that the C recon and the diffwtd masks read.  A
+    plane the device made has its host plane made once, on demand: from
+    the frame's `LazyPlanes` where those are downloaded already, else by
+    downloading this plane alone (in resident mode the frame itself stays
+    on the device); a plane the C recon made is uploaded once, at its
+    first use by MC."""
 
-    __slots__ = ("_dev", "_lazy", "_host", "lw", "lh")
+    __slots__ = ("_dev", "_lazy", "_host", "lw", "lh", "dtype")
 
     def __init__(self, lw: int, lh: int, dev: Optional[torch.Tensor] = None,
                  lazy: Optional[Tuple[LazyPlanes, int]] = None,
-                 host: Optional[np.ndarray] = None):
+                 host: Optional[np.ndarray] = None,
+                 dtype: torch.dtype = torch.uint8):
         self.lw, self.lh = lw, lh
         self._dev, self._lazy, self._host = dev, lazy, host
+        self.dtype = dev.dtype if dev is not None else dtype
 
     def host(self) -> np.ndarray:
         """The host plane, uint16, C-contiguous, at least lh x lw."""
         if self._host is None:
             planes, i = self._lazy
-            u8 = planes[i] if planes.materialised \
+            got = planes[i] if planes.materialised \
                 else self._dev.cpu().numpy()
-            self._host = u8.astype(np.uint16)
+            self._host = got.astype(np.uint16)
         return self._host
 
     def tensor(self, device: torch.device) -> torch.Tensor:
-        """The uint8 [lh, lw] plane on `device`."""
+        """The [lh, lw] plane on `device`, of type `dtype`."""
         if self._dev is None or self._dev.device != device:
             h = self.host()[:self.lh, :self.lw]
-            if h.max(initial=0) > 255:
-                raise ValueError("device references hold 8-bit samples")
-            self._dev = torch.from_numpy(h.astype(np.uint8)).to(device)
+            self._dev = torch.from_numpy(np.ascontiguousarray(
+                h, np.uint8 if self.dtype == torch.uint8 else np.uint16)
+            ).to(device)
         return self._dev
 
 
 def covers(seq, hdr) -> bool:
-    """The slice: 8-bit frames, intra (intrabc too) or inter, with
-    superres, loop restoration and film grain.  Non-4:2:0 CfL is declined
-    by the recons; intrabc blocks inside inter frames and scaled
-    references by the MC planner."""
-    return seq.color.bitdepth == 8
+    """The slice: 8-, 10- and 12-bit frames, intra (intrabc too) or
+    inter, with superres, loop restoration and film grain.  Non-4:2:0
+    CfL is declined by the recons; intrabc blocks inside inter frames
+    and scaled references by the MC planner."""
+    return seq.color.bitdepth in (8, 10, 12)
 
 
 def export_units(lib, hdr, out, rp) -> Optional[np.ndarray]:
@@ -232,8 +235,8 @@ def _finish(dev, seq, hdr, out, bufs, maps, clock):
 
 def _tail(dev, seq, hdr, resident, grain, clock):
     """Crop and cast, then film grain on a copy: (display planes, a
-    `LazyPlanes` of uint8 device planes; ref triples of DevRef) from the
-    post-filtered planes.  grain: None, or a callable (film grain
+    `LazyPlanes` of device planes of `sample_dtype`; ref triples of
+    DevRef) from the post-filtered planes.  grain: None, or a callable (film grain
     parameters, seq, device planes) -> new grained device planes.  The
     references keep the planes without grain; the display planes are
     downloaded at once unless `resident`."""
@@ -242,11 +245,12 @@ def _tail(dev, seq, hdr, resident, grain, clock):
     cw, ch = (w + ssx) >> ssx, (h + ssy) >> ssy
     fg = getattr(hdr, "film_grain", None)
     grained = grain is not None and fg is not None and fg.apply_grain
-    clean = [d[:ph_, :pw_].to(torch.uint8).contiguous()
+    dt = sample_dtype(seq.color.bitdepth)
+    clean = [d[:ph_, :pw_].to(dt).contiguous()
              for d, (pw_, ph_) in zip(dev, ((w, h), (cw, ch), (cw, ch)))]
     planes = LazyPlanes(clean, eager=not (resident or grained))
-    refs = [(DevRef(u8.shape[1], u8.shape[0], dev=u8, lazy=(planes, p)),
-             u8.shape[1], u8.shape[0]) for p, u8 in enumerate(clean)]
+    refs = [(DevRef(c.shape[1], c.shape[0], dev=c, lazy=(planes, p)),
+             c.shape[1], c.shape[0]) for p, c in enumerate(clean)]
     clock.mark("tail", clean[0].device)
     if grained:
         noisy = grain(fg, seq, clean)
@@ -382,7 +386,9 @@ def _c_recon(lib, seq, hdr, out, fp_rc, rp, rfl):
     for p, (pw_, ph_) in zip(pl[:seq.color.num_planes],
                              ((w, h), (cw, ch), (cw, ch))):
         planes.append(p[:ph_, :pw_].astype(dt))
-        refs.append((DevRef(pw_, ph_, host=p), pw_, ph_))
+        refs.append((DevRef(pw_, ph_, host=p,
+                            dtype=sample_dtype(seq.color.bitdepth)),
+                     pw_, ph_))
     return planes, refs
 
 

@@ -79,11 +79,13 @@ def _rand_units(n: int, plane: int, ph: int, pw: int, rng) -> List[list]:
 
 
 def random_program(seed: int, mi_rows: int = MI_ROWS,
-                   mi_cols: int = MI_COLS, n_rand: int = 44) -> Dict:
-    """One plane's program on a 4:2:0 frame of mi_rows x mi_cols:
-    {"plane", "units" [N, 24] int32 in decode order, "dims" per plane,
-    "resid" int16 per plane, "luma" [4 mi_rows, 4 mi_cols] int32 (the
-    finished luma that chroma CfL reads)}."""
+                   mi_cols: int = MI_COLS, n_rand: int = 44,
+                   bd: int = 8) -> Dict:
+    """One plane's program on a 4:2:0 frame of mi_rows x mi_cols at bit
+    depth bd: {"plane", "units" [N, 24] int32 in decode order, "dims"
+    per plane, "resid" int16 per plane, "luma" [4 mi_rows, 4 mi_cols]
+    int32 (the finished luma that chroma CfL reads)}.  At 8 bits the
+    draws are those the generator always made."""
     rng = np.random.default_rng(seed)
     plane = int(rng.integers(0, 3))
     ah, aw = mi_rows * 4, mi_cols * 4
@@ -96,8 +98,9 @@ def random_program(seed: int, mi_rows: int = MI_ROWS,
     for st in range(-(-ph // sh)):
         units += [u for u in base if u[2] // sh == st]
         units += [u for u in rand if u[2] // sh == st]
-    resid = [rng.integers(-50, 51, d).astype(np.int16) for d in dims]
-    luma = rng.integers(0, 256, dims[0]).astype(np.int32)
+    lim = 50 << (bd - 8)
+    resid = [rng.integers(-lim, lim + 1, d).astype(np.int16) for d in dims]
+    luma = rng.integers(0, 1 << bd, dims[0]).astype(np.int32)
     return {"plane": plane, "units": np.array(units, np.int32),
             "dims": dims, "resid": resid, "luma": luma}
 
@@ -234,7 +237,7 @@ def _blocks(ph: int, pw: int, sb: int, rng) -> List[tuple]:
 
 
 def random_mc_program(seed: int, width: int = 100, height: int = 76,
-                      n_slots: int = 3) -> Dict:
+                      n_slots: int = 3, bd: int = 8) -> Dict:
     """A random 4:2:0 frame of MC units of every kind in
     `mc_plan.export_inter_plan`'s layout, over a random partition of each
     plane into blocks of 4 to 128 pixels: single-reference units of the
@@ -245,8 +248,10 @@ def random_mc_program(seed: int, width: int = 100, height: int = 76,
     blocks (bare prediction, above and left overlays with masks of 2 to
     32 lines, the deferred residual rects).  Positions reach well past
     the frame edges, so the windows clamp there.  Returns {"plan",
-    "refs": per plane the n_slots uint8 logical reference planes,
-    "resid": int16 per plane, "dims": the mi-aligned plane dims}."""
+    "refs": per plane the n_slots logical reference planes of bd-bit
+    samples (uint8 at 8 bits, else uint16), "resid": int16 per plane,
+    "dims": the mi-aligned plane dims}.  At 8 bits the draws are those
+    the generator always made."""
     from easyav1_tpu_torch.video.av1 import constants as C
     from easyav1_tpu_torch.video.av1.recon import mc_plan as M
     from easyav1_tpu_torch.video.av1.wedge import (diffwtd_mask,
@@ -286,9 +291,9 @@ def random_mc_program(seed: int, width: int = 100, height: int = 76,
         if bs and rng.random() < 0.5:
             return wedge_mask(bs[0], int(rng.integers(0, 16)),
                               int(rng.integers(0, 2))).astype(np.int32)
-        p0, p1 = (rng.integers(0, 256 << 4, (h, w)) for _ in range(2))
+        p0, p1 = (rng.integers(0, (1 << bd) << 4, (h, w)) for _ in range(2))
         return diffwtd_mask(p0, p1, int(rng.integers(0, 2)),
-                            8).astype(np.int32)
+                            bd).astype(np.int32)
 
     for p, (ph, pw) in enumerate(dims):
         for x, y, w, h in _blocks(ph, pw, 128 >> (p > 0), rng):
@@ -346,7 +351,9 @@ def random_mc_program(seed: int, width: int = 100, height: int = 76,
                       for k, v in plan[name].items()}
     plan["pair_masks"] = {k: np.stack(v)
                           for k, v in plan["pair_masks"].items()}
-    refs = [[rng.integers(0, 256, lg).astype(np.uint8)
+    refs = [[rng.integers(0, 1 << bd, lg).astype(
+        np.uint8 if bd == 8 else np.uint16)
              for _ in range(n_slots)] for lg in logical]
-    resid = [rng.integers(-64, 65, d).astype(np.int16) for d in dims]
+    lim = 64 << (bd - 8)
+    resid = [rng.integers(-lim, lim + 1, d).astype(np.int16) for d in dims]
     return {"plan": plan, "refs": refs, "resid": resid, "dims": dims}

@@ -225,8 +225,23 @@ def _edge_pad(a: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
     return a.to(torch.int32)[rows][:, cols]
 
 
-def _noise(src, val, g, lut, shift, vmin, vmax):
-    scale = lut[val.clamp(0, 255).long()]
+def scale_lut(lut, val, bd):
+    """The scaling of sample values `val` (spec 7.18.3.5 scale_lut):
+    lut[val] at 8 bits; above, the LUT's 256 entries interpolated in the
+    low bd - 8 bits.  (The JAX package's `fg_jax` indexes
+    lut[clip(val, 0, 255)] at every depth, which differs from dav1d
+    wherever a 10- or 12-bit sample exceeds 255.)"""
+    if bd == 8:
+        return lut[val.clamp(0, 255).long()]
+    sh = bd - 8
+    x = (val >> sh).clamp_(0, 255).long()
+    rem = val - (x << sh)
+    lo, hi = lut[x], lut[(x + 1).clamp_(max=255)]
+    return lo + (((hi - lo) * rem + (1 << (sh - 1))) >> sh)
+
+
+def _noise(src, val, g, lut, shift, vmin, vmax, bd):
+    scale = scale_lut(lut, val, bd)
     return (src + ((scale * g + (1 << (shift - 1))) >> shift)).clamp_(vmin,
                                                                       vmax)
 
@@ -294,7 +309,7 @@ class FilmGrain:
             g = grain_plane(self._grain[0], *offsets(0, 0), BLK, BLK, 0, 0,
                             overlap, gmin, gmax)
             out[0] = _noise(src, src, g, self._lut[0], shift, ymin,
-                            ymax)[:h, :w].to(planes[0].dtype)
+                            ymax, bd)[:h, :w].to(planes[0].dtype)
         do = (None, bool(fg.num_cb_points or fg.chroma_scaling_from_luma),
               bool(fg.num_cr_points or fg.chroma_scaling_from_luma))
         if (do[1] or do[2]) and not self.mono and len(planes) > 1:
@@ -324,6 +339,6 @@ class FilmGrain:
                            + ((offv - 256) << (bd - 8))).clamp_(
                         0, (1 << bd) - 1)
                 out[plane] = _noise(src, val, g, self._lut[plane], shift,
-                                    cmin, cmax)[:ch, :cw2].to(
+                                    cmin, cmax, bd)[:ch, :cw2].to(
                     planes[plane].dtype)
         return out

@@ -112,7 +112,7 @@ class InterRecon(IntraRecon):
                refs: Sequence[Sequence[torch.Tensor]]) -> List[torch.Tensor]:
         """The MC planes: zero planes, then MC of every single, pair and
         warp unit (kernel 6a), then the OBMC passes (kernel 6b).  refs[p]:
-        the uint8 planes of the plan's slots."""
+        the planes of the plan's slots (uint8, or uint16 above 8 bits)."""
         planes = [torch.zeros(d, dtype=torch.int32, device=self.device)
                   for d in self.dims]
         inter_mc.mc_units(planes, resid, refs, plan, self.bd)

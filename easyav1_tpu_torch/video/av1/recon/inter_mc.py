@@ -7,8 +7,11 @@ Planes are int32, unpadded and mi-aligned; every write and every
 residual read is clipped to the plane, and a unit whose valid field is 0
 writes nothing.  Reference windows clamp to the reference's logical
 width and height, which are its tensor's: `refs[p]` holds plane p of
-each used reference slot, in the plan's dense slot order, as a uint8
-[rh, rw] tensor.
+each used reference slot, in the plan's dense slot order, as a [rh, rw]
+tensor of uint8 at 8 bits and of uint16 at 10 and 12 bits.  The
+rounding is the spec's (7.11.3.2): at 12 bits InterRound0 is 5, a single
+prediction rounds at 9 and the compound blends shift 2 less than at 8
+and 10 bits (`round0`).
 
 - `mc_single`, `mc_pair`, `mc_warp`, `obmc_overlay`, `obmc_resid`: the
   plain torch versions, vectorised over the units of one bucket.
@@ -27,13 +30,13 @@ each used reference slot, in the plan's dense slot order, as a uint8
   add the residual and store once.  `obmc_tables` groups the overlays by
   block.
 - `mc_launch.launches`, `obmc_launch.launches`: the kernels' launch
-  counts.
+  counts, over both sample types.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +47,7 @@ from easyav1_tpu_torch.video.av1.recon.mc_plan import (
     P_Y, S_FH, S_FV, S_IX, S_IY, S_NORES, S_SLOT, S_VALID, S_X, S_Y, W_ALPHA,
     W_BETA, W_DELTA, W_GAMMA, W_IX4, W_IY4, W_SLOT, W_SX4, W_SY4, W_VALID,
     W_X, W_Y)
+from easyav1_tpu_torch.video.av1.wedge import round0
 
 TILE = 16                 # the widest output tile of a warp
 K_SINGLE, K_PAIR, K_WARP, K_BLOCK = range(4)
@@ -83,10 +87,10 @@ def _store(plane, yy, xx, keep, out):
     plane[yy[keep], xx[keep]] = out[keep].to(plane.dtype)
 
 
-def _subpel(refstk, slot, ix, iy, fh8, fv8, w, h):
+def _subpel(refstk, slot, ix, iy, fh8, fv8, w, h, r0):
     """The two 8-tap passes over each unit's (h + 7) x (w + 7) window,
-    clamped to the reference: (accH + 4) >> 3, then the vertical sum
-    accV [n, h, w] before its final rounding."""
+    clamped to the reference: (accH + 2^(r0 - 1)) >> r0, then the
+    vertical sum accV [n, h, w] before its final rounding."""
     rh, rw = refstk.shape[1:]
     dev = refstk.device
     rows = torch.clamp(iy[:, None] - 3 + torch.arange(h + 7, device=dev),
@@ -96,23 +100,26 @@ def _subpel(refstk, slot, ix, iy, fh8, fv8, w, h):
     win = refstk[slot[:, None, None], rows[:, :, None],
                  cols[:, None, :]].to(torch.int64)
     acc = sum(win[:, :, t:t + w] * fh8[:, t, None, None] for t in range(8))
-    m = (acc + 4) >> 3
+    m = (acc + (1 << (r0 - 1))) >> r0
     return sum(m[:, t:t + h, :] * fv8[:, t, None, None] for t in range(8))
 
 
-def _single_pred(refstk, f, w, h, mx):
+def _single_pred(refstk, f, w, h, bd):
+    r0 = round0(bd)
     acc = _subpel(refstk, f[:, S_SLOT], f[:, S_IX], f[:, S_IY],
-                  f[:, S_FH:S_FH + 8], f[:, S_FV:S_FV + 8], w, h)
-    return torch.clamp((acc + 1024) >> 11, 0, mx)
+                  f[:, S_FH:S_FH + 8], f[:, S_FV:S_FV + 8], w, h, r0)
+    return torch.clamp((acc + (1 << (13 - r0))) >> (14 - r0), 0,
+                       (1 << bd) - 1)
 
 
 def mc_single(plane, resid, refstk, f, w, h, bd):
     """Single-reference units f [n, NS] of one (w, h) bucket into plane
-    [ph, pw] int32, in place: clip((accV + 1024) >> 11), plus the
-    residual unless the unit's nores is set.  refstk [ns, rh, rw]."""
+    [ph, pw] int32, in place: clip((accV + 1024) >> 11) (at 12 bits
+    (accV + 256) >> 9), plus the residual unless the unit's nores is
+    set.  refstk [ns, rh, rw]."""
     f = f.to(torch.int64)
     mx = (1 << bd) - 1
-    v = _single_pred(refstk, f, w, h, mx)
+    v = _single_pred(refstk, f, w, h, bd)
     yy, xx, keep = _rect(f, S_X, S_Y, w, h, plane.shape)
     out = torch.where((f[:, S_NORES] != 0)[:, None, None], v,
                       torch.clamp(v + _read(resid, yy, xx), 0, mx))
@@ -124,21 +131,23 @@ def mc_pair(plane, resid, refstk, f, masks, w, h, bd):
     """Compound units f [n, NPR] of one bucket, in place: each
     prediction at (accV + 64) >> 7, then the weight blend
     (p0 w0 + p1 w1 + 128) >> 8 or, for blend mode 1, the mask blend
-    (p0 m + p1 (64 - m) + 512) >> 10 with m = masks[P_MIDX] [h, w];
-    clipped, plus the residual."""
+    (p0 m + p1 (64 - m) + 512) >> 10 with m = masks[P_MIDX] [h, w]
+    (at 12 bits >> 6 and >> 8); clipped, plus the residual."""
     f = f.to(torch.int64)
     mx = (1 << bd) - 1
+    r0 = round0(bd)
+    ipr = 7 - r0
 
     def pred(b):
         acc = _subpel(refstk, f[:, b], f[:, b + 1], f[:, b + 2],
-                      f[:, b + 3:b + 11], f[:, b + 11:b + 19], w, h)
+                      f[:, b + 3:b + 11], f[:, b + 11:b + 19], w, h, r0)
         return (acc + 64) >> 7
 
     p0, p1 = pred(P_PRED0), pred(P_PRED1)
     vw = (p0 * f[:, P_W0, None, None] + p1 * f[:, P_W1, None, None]
-          + 128) >> 8
+          + (8 << ipr)) >> (ipr + 4)
     m = masks.to(torch.int64)[f[:, P_MIDX]]
-    vm = (p0 * m + p1 * (64 - m) + 512) >> 10
+    vm = (p0 * m + p1 * (64 - m) + (32 << ipr)) >> (ipr + 6)
     v = torch.clamp(torch.where((f[:, P_MODE] == 1)[:, None, None], vm, vw),
                     0, mx)
     yy, xx, keep = _rect(f, P_X, P_Y, w, h, plane.shape)
@@ -150,11 +159,12 @@ def mc_pair(plane, resid, refstk, f, masks, w, h, bd):
 def mc_warp(plane, resid, refstk, f, wf, bd):
     """Affine warp units f [n, NW], one 8x8 output each, in place: the
     15 x 15 window, per-pixel phases of `warped_filter` wf [193, 8],
-    (acc + 4) >> 3 across, clip((acc + 1024) >> 11) down, plus the
-    residual."""
+    (acc + 4) >> 3 across, clip((acc + 1024) >> 11) down (at 12 bits
+    >> 5 and >> 9), plus the residual."""
     f = f.to(torch.int64)
     wf = wf.to(torch.int64)
     mx = (1 << bd) - 1
+    r0 = round0(bd)
     rh, rw = refstk.shape[1:]
     dev = refstk.device
     ar15 = torch.arange(15, device=dev)
@@ -172,13 +182,13 @@ def mc_warp(plane, resid, refstk, f, wf, bd):
                + 512) >> 10) + 64
     ch = wf[offs_h]                                   # [n, 15, 8, 8]
     tmp = sum(win[:, :, m:m + 8] * ch[..., m] for m in range(8))
-    tmp = (tmp + 4) >> 3
+    tmp = (tmp + (1 << (r0 - 1))) >> r0
     k2 = torch.arange(8, device=dev)[None, :, None]
     offs_v = ((par(W_SY4) + par(W_DELTA) * k2 + par(W_GAMMA) * ll
                + 512) >> 10) + 64
     cv = wf[offs_v]                                   # [n, 8, 8, 8]
     acc = sum(tmp[:, m:m + 8, :] * cv[..., m] for m in range(8))
-    v = torch.clamp((acc + 1024) >> 11, 0, mx)
+    v = torch.clamp((acc + (1 << (13 - r0))) >> (14 - r0), 0, mx)
     yy, xx, keep = _rect(f, W_X, W_Y, 8, 8, plane.shape)
     out = torch.clamp(v + _read(resid, yy, xx), 0, mx)
     _store(plane, yy, xx, keep & (f[:, W_VALID] != 0)[:, None, None], out)
@@ -192,7 +202,7 @@ def obmc_overlay(plane, refstk, f, w, h, bd, left, masks):
     the raised-cosine mask m of the rect's height by row (above pass) or
     of its width by column (left pass); masks: `convert`'s obmc_masks."""
     f = f.to(torch.int64)
-    v = _single_pred(refstk, f, w, h, (1 << bd) - 1)
+    v = _single_pred(refstk, f, w, h, bd)
     n = w if left else h
     mk = masks[n - 2:2 * n - 2].to(torch.int64)
     mk = mk[None, None, :] if left else mk[None, :, None]
@@ -217,12 +227,21 @@ def _t(a: np.ndarray, dev) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
 
 
+def _stack(planes) -> Optional[torch.Tensor]:
+    """A plane's reference slots as one [ns, rh, rw] tensor; uint16
+    slots as int32, since CUDA has no indexing of uint16 tensors."""
+    if not planes:
+        return None
+    return torch.stack([t.to(torch.int32) if t.dtype == torch.uint16 else t
+                        for t in planes])
+
+
 def mc_units_plain(planes: List[torch.Tensor], resid, refs, plan: Dict,
                    bd: int) -> List[torch.Tensor]:
     """The plain version of `mc_units` (any device): the plan's single,
     pair and warp buckets in the reference's order, in place."""
     dev = planes[0].device
-    stk = [torch.stack(list(r)) if r else None for r in refs]
+    stk = [_stack(r) for r in refs]
     for (p, w, h), f in sorted(plan["singles"].items()):
         mc_single(planes[p], resid[p], stk[p], _t(f, dev), w, h, bd)
     for (p, w, h), f in sorted(plan["pairs"].items()):
@@ -241,7 +260,7 @@ def obmc_plain(planes: List[torch.Tensor], resid, refs, plan: Dict,
                bd: int) -> List[torch.Tensor]:
     """The plain version of `obmc` (any device), in place."""
     dev = planes[0].device
-    stk = [torch.stack(list(r)) if r else None for r in refs]
+    stk = [_stack(r) for r in refs]
     masks = convert.tables(dev)["obmc_masks"]
     for name, left in (("obmc_above", False), ("obmc_left", True)):
         for (p, w, h), f in sorted(plan[name].items()):
@@ -488,23 +507,37 @@ def obmc_tables(plan: Dict, pinned: bool = False) -> Dict:
 
 # ------------------------------------------------------------- wrappers
 
+LAUNCHES = ("inter_mc_launch", "obmc_launch", "inter_mc_launch16",
+            "obmc_launch16")
+
+
 def _lib():
     from easyav1_tpu_torch import _build
     lib = _build.load("inter_mc")
     if lib.inter_mc_launch.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         frame = [vp] * 7         # _frame_args
-        lib.inter_mc_launch.restype = ci
-        lib.inter_mc_launch.argtypes = [ci, *frame, vp, vp, vp, ci, vp]
-        lib.obmc_launch.restype = ci
-        lib.obmc_launch.argtypes = [ci, *frame, vp, vp, vp, ci, vp]
+        for name in LAUNCHES:
+            fn = getattr(lib, name)
+            fn.restype = ci
+            fn.argtypes = [ci, *frame, vp, vp, vp, ci, vp]
     return lib
 
 
-def _frame_args(planes, resid, refs):
+def sample_dtype(bd: int) -> torch.dtype:
+    """A frame's sample type on the device, and so the reference planes'
+    type here: uint8 at 8 bits, uint16 at 10 and 12 (the reference's
+    casts, `native/__init__.py:1336`, `:1451`)."""
+    return torch.uint8 if bd == 8 else torch.uint16
+
+
+def _frame_args(planes, resid, refs, bd):
     """The per-plane arguments both kernels take, checked: out, resid,
     ph, pw, the ref pointers [np][8], and rw, rh, the references'
     logical width and height (ctypes arrays)."""
+    if bd not in (8, 10, 12):
+        raise ValueError(f"bit depth {bd}: want 8, 10 or 12")
+    want = sample_dtype(bd)
     dev = planes[0].device
     n_pl = len(planes)
     if not 1 <= n_pl == len(resid) == len(refs) <= 3:
@@ -524,11 +557,12 @@ def _frame_args(planes, resid, refs):
         if len(rs) > 8:
             raise ValueError(f"refs[{p}]: at most 8 slots")
         for s, t in enumerate(rs):
-            if t.dtype != torch.uint8 or t.dim() != 2 \
+            if t.dtype != want or t.dim() != 2 \
                     or not t.is_contiguous() or t.device != dev \
                     or tuple(t.shape) != tuple(rs[0].shape):
-                raise ValueError(f"refs[{p}][{s}]: want contiguous uint8 "
-                                 f"planes of one shape on {dev}")
+                raise ValueError(f"refs[{p}][{s}]: want contiguous {want} "
+                                 f"planes of one shape on {dev} at {bd} "
+                                 f"bits, got {t.dtype}")
             ref_ptrs[8 * p + s] = t.data_ptr()
         if rs:
             rh[p], rw[p] = rs[0].shape
@@ -546,13 +580,16 @@ def upload(tabs: Dict, dev) -> Dict:
             "layout": tabs["layout"], "n_tiles": tabs["n_tiles"]}
 
 
-def _launch(fn, planes, resid, refs, tabs, table, bd):
+def _launch(name, planes, resid, refs, tabs, table, bd):
+    """Launches the kernel `name` (its uint16 instantiation above 8
+    bits); returns the cudaError_t."""
     dev = planes[0].device
     buf = tabs["buf"]
     if buf.device != dev or buf.dtype != torch.int32 \
             or not buf.is_contiguous():
         raise ValueError(f"tables: want a contiguous int32 buffer on {dev}")
-    args = _frame_args(planes, resid, refs)
+    args = _frame_args(planes, resid, refs, bd)
+    fn = getattr(_lib(), name + ("16" if bd > 8 else ""))
     layout = (ctypes.c_int * len(tabs["layout"]))(*tabs["layout"])
     with torch.cuda.device(dev):
         return fn(len(planes), *args, buf.data_ptr(), layout,
@@ -566,7 +603,7 @@ def mc_launch(planes: List[torch.Tensor], resid: Sequence[torch.Tensor],
     """Launch kernel 6a once on CUDA tensors, in place: `tabs` is
     `upload(mc_tables(plan), device)` with at least one work index,
     other arguments as `mc_units`.  Raises if the launch fails."""
-    rc = _launch(_lib().inter_mc_launch, planes, resid, refs, tabs,
+    rc = _launch("inter_mc_launch", planes, resid, refs, tabs,
                  "warped_filter", bd)
     if rc != 0:
         raise RuntimeError(f"inter_mc launch failed: cudaError {rc}")
@@ -583,8 +620,8 @@ def obmc_launch(planes: List[torch.Tensor], resid: Sequence[torch.Tensor],
     """Launch kernel 6b once on CUDA tensors, in place: `tabs` is
     `upload(obmc_tables(plan), device)` with at least one work index.
     Raises if the launch fails."""
-    rc = _launch(_lib().obmc_launch, planes, resid, refs, tabs,
-                 "obmc_masks", bd)
+    rc = _launch("obmc_launch", planes, resid, refs, tabs, "obmc_masks",
+                 bd)
     if rc != 0:
         raise RuntimeError(f"obmc launch failed: cudaError {rc}")
     obmc_launch.launches += 1
@@ -607,7 +644,7 @@ def mc_units(planes: List[torch.Tensor], resid: Sequence[torch.Tensor],
              bd: int) -> List[torch.Tensor]:
     """MC of a frame's single, pair and warp units, in place: planes[p]
     int32 [ph, pw], resid[p] int16 of the same shape, refs[p] the used
-    slots' uint8 planes in the plan's order.  CPU tensors take
+    slots' planes in the plan's order (`sample_dtype(bd)`).  CPU tensors take
     `mc_units_plain`; CUDA tensors launch kernel 6a once (`mc_launch`,
     when the plan has units), or raise."""
     if not _on_card(planes):

@@ -20,7 +20,8 @@ from easyav1_tpu_torch import convert
 from easyav1_tpu_torch.video.av1.recon.intra_strip import (
     check_units, sb_schedule, sequential_schedule, strip_exec_frame)
 from easyav1_tpu_torch.video.av1.recon.records import (
-    apply_literals, compose_residual_host, preprocess_units)
+    apply_literals, compose_residual_host, narrow_residual,
+    preprocess_units)
 
 
 class IntraRecon:
@@ -55,16 +56,17 @@ class IntraRecon:
         interintra units) and the SB schedule (`sb_schedule`, or for an
         intrabc frame `sequential_schedule`), or None when the frame
         needs what the executor lacks: CfL outside 4:2:0 or a residual
-        wider than int16."""
+        (palette literals folded in) outside int16."""
         if self.np_ > 1 and not self.cfl \
                 and np.any(units[units[:, 0] > 0][:, 5] == 8):
             return None
         fields = preprocess_units(units, self.dims)
         resid = compose_residual_host(txs, coeffs, self.dims, self.bd)
-        if resid[0].dtype != np.int16:
-            return None
         if literals is not None:
             apply_literals(resid, literals)
+        resid = narrow_residual(resid)
+        if resid is None:
+            return None
         masks = self._interintra(fields)
         for p, (f, m) in enumerate(zip(fields, masks)):
             check_units(f, self.dims[p], p > 0 and self.cfl,

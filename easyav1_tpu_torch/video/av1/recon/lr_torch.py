@@ -12,7 +12,10 @@ The host expands each restoration unit's parameters across its columns
 (numpy, as in the reference); the device filters with exact integer
 torch ops.  Everything is int32 except the SGR `p * s`, which
 the reference computes in uint32 and which passes 2^31: int64 here,
-masked to 32 bits.
+masked to 32 bits; and b2's product, int64, which passes 2^31 at 12
+bits.  Above 8 bits the SGR variance takes the box sums rounded to 8
+bits and b2 the sum itself, as the spec (7.17.3) and dav1d do; the JAX
+package rounds the sum for both.
 """
 
 from __future__ import annotations
@@ -136,11 +139,14 @@ def lr_stripes(S, m, lut, sh: int, bd: int) -> torch.Tensor:
         def sgr_pass(radius, n, sc, pass0):
             one_over_n = _DIV_LUT[n]
             asum, bsum = boxes(radius)
+            # above 8 bits the variance takes the sums rounded to 8 bits,
+            # b2 the sum itself (spec 7.17.3; lr_jax rounds it for both)
+            dsum = bsum
             if bd > 8:
                 shp = 2 * (bd - 8)
                 asum = (asum + (1 << (shp - 1))) >> shp
-                bsum = (bsum + (1 << (bd - 9))) >> (bd - 8)
-            p = (asum * n - bsum * bsum).clamp_(min=0).to(torch.int64)
+                dsum = (bsum + (1 << (bd - 9))) >> (bd - 8)
+            p = (asum * n - dsum * dsum).clamp_(min=0).to(torch.int64)
             sc = sc[:, None, :].to(torch.int64)
 
             # a2 and b2 at grid-column offset dx, with the s of the
@@ -151,7 +157,9 @@ def lr_stripes(S, m, lut, sh: int, bd: int) -> torch.Tensor:
                 bb = bsum[:, :, 1 + dx:1 + dx + W]
                 z = ((pp * sc + (1 << 19)) & 0xFFFFFFFF) >> 20
                 a2 = lut[z.clamp_(max=255)]
-                b2 = ((256 - a2) * bb * one_over_n + (1 << 11)) >> 12
+                # int64: at 12 bits (256 - a2) b one_over_n passes 2^31
+                b2 = (((256 - a2).to(torch.int64) * bb * one_over_n
+                       + (1 << 11)) >> 12).to(torch.int32)
                 return a2, b2
 
             if pass0:

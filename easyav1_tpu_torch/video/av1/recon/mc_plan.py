@@ -21,6 +21,7 @@ import numpy as np
 
 from easyav1_tpu_torch.video.av1 import constants as C
 from easyav1_tpu_torch.video.av1 import tables as T
+from easyav1_tpu_torch.video.av1.wedge import round0
 
 # block-record field indices (native/av1_common.h BLK_* enum)
 (B_R, B_C, B_BSIZE, B_YMODE, B_UVMODE, B_ANGLE_Y, B_ANGLE_UV, B_SKIP,
@@ -140,10 +141,11 @@ def _dist_weights_np(seq, hdr, ref0: np.ndarray, ref1: np.ndarray):
 
 
 def _host_comp_pred(ref, rw, rh, x, y, w, h, mvr, mvc, interp0,
-                    interp1, sx, sy):
+                    interp1, sx, sy, bd=8):
     """Numpy mirror of the compound-intermediate prediction
-    ((accH+4)>>3 then (accV+64)>>7; av1_mc.h predict_inter comp=1) for
-    host-side diffwtd mask generation."""
+    ((accH+4)>>3 then (accV+64)>>7, at 12 bits (accH+16)>>5; av1_mc.h
+    predict_inter comp=1) for host-side diffwtd mask generation."""
+    r0 = round0(bd)
     bank = _filter_bank()
     start_x = (x << 4) + mvc * (1 if sx else 2)
     start_y = (y << 4) + mvr * (1 if sy else 2)
@@ -157,7 +159,7 @@ def _host_comp_pred(ref, rw, rh, x, y, w, h, mvr, mvc, interp0,
     cols = np.clip(ix - 3 + np.arange(w + 7), 0, rw - 1)
     win = ref[np.ix_(rows, cols)].astype(np.int64)
     acc = sum(win[:, t:t + w] * fh8[t] for t in range(8))
-    m = (acc + 4) >> 3
+    m = (acc + (1 << (r0 - 1))) >> r0
     acc2 = sum(m[t:t + h, :] * fv8[t] for t in range(8))
     return (acc2 + 64) >> 7
 
@@ -268,7 +270,7 @@ def export_inter_plan(seq, hdr, blocks: np.ndarray,
                     ps.append(_host_comp_pred(
                         ref, lw, lh, x0, y0, bw, bh, int(b[mvrf]),
                         int(b[mvcf]), int(b[B_INTERP0]),
-                        int(b[B_INTERP1]), 0, 0))
+                        int(b[B_INTERP1]), 0, 0, bd_))
                 mL = np.asarray(
                     diffwtd_mask(ps[0], ps[1], int(b[B_MASK_TYPE]),
                                  bd_), np.int32)

@@ -120,6 +120,18 @@ def compose_residual_host(txs, coeffs, shapes, bd):
     return planes
 
 
+def narrow_residual(planes):
+    """The composed residual planes as int16, which the kernels take:
+    int16 planes as they are (bit depths up to 10); int32 planes (12
+    bits, |residual| <= 2^15) cast when every value fits, else None."""
+    if all(p.dtype == np.int16 for p in planes):
+        return planes
+    if any(p.size and (int(p.min()) < -32768 or int(p.max()) > 32767)
+           for p in planes):
+        return None
+    return [p.astype(np.int16) for p in planes]
+
+
 def apply_literals(planes, literals):
     """Fold palette-prediction patches (av1_export_literal_preds) into
     the composed residual planes: cls-10 units then reconstruct as

@@ -5,12 +5,13 @@ each comes back.  The counterpart of `resident.py` of the JAX package:
 XLA compiles).
 
 The hash is `api.frame_hash` (the reference's `frame_hash_host`):
-for each uint8 plane [ph, pw], sum(p[r, c] * (1 + r * 2654435761 +
-c * 40503)) in uint32, wrapping, and h = h * 16777619 + sum over the
-planes from h = 2166136261.  On CUDA tensors `frame_hash_device` launches
-the hand-written kernel `csrc/frame_hash.cu` (built by nvcc at first
-use) or raises; CPU tensors take the plain version, int64 masked to 32
-bits, since torch has no uint32 arithmetic.
+for each plane [ph, pw] (uint8 at 8 bits, uint16 at 10 and 12),
+sum(p[r, c] * (1 + r * 2654435761 + c * 40503)) in uint32, wrapping,
+and h = h * 16777619 + sum over the planes from h = 2166136261.  On CUDA
+tensors `frame_hash_device` launches the hand-written kernel
+`csrc/frame_hash.cu` (built by nvcc at first use) or raises; CPU
+tensors take the plain version, int64 masked to 32 bits, since torch
+has no uint32 arithmetic.
 """
 
 from __future__ import annotations
@@ -50,15 +51,17 @@ def _lib():
     fn = lib.frame_hash_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6
+        vp = ctypes.c_void_p
+        fn.argtypes = [ctypes.c_int, vp, vp, vp, vp, ctypes.c_int, vp, vp]
     return lib
 
 
 def frame_hash_device(planes: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The hash of a frame's uint8 planes (one to three, 2-D, rows
-    contiguous) where they lie, without waiting for it: a 0-d tensor on
-    their device, read with `hash_value`.  CUDA planes launch the kernel
-    once, or raise; CPU planes take `frame_hash_plain`."""
+    """The hash of a frame's planes (one to three, 2-D, rows contiguous,
+    all uint8 or all uint16) where they lie, without waiting for it: a
+    0-d tensor on their device, read with `hash_value`.  CUDA planes
+    launch the kernel once, or raise; CPU planes take
+    `frame_hash_plain`."""
     planes = list(planes)
     dev = planes[0].device
     if any(p.device != dev for p in planes):
@@ -69,12 +72,14 @@ def frame_hash_device(planes: Sequence[torch.Tensor]) -> torch.Tensor:
         raise ValueError(f"unsupported device {dev}")
     if not 1 <= len(planes) <= 3:
         raise ValueError("one to three planes")
+    dt = planes[0].dtype
     for k, p in enumerate(planes):
-        if p.dtype != torch.uint8 or p.dim() != 2 \
-                or (p.shape[1] > 1 and p.stride(1) != 1) \
+        if p.dtype not in (torch.uint8, torch.uint16) or p.dtype != dt \
+                or p.dim() != 2 or (p.shape[1] > 1 and p.stride(1) != 1) \
                 or p.stride(0) < p.shape[1]:
-            raise ValueError(f"planes[{k}]: want 2-D uint8 with contiguous "
-                             f"rows, got {p.dtype} {tuple(p.shape)} strides "
+            raise ValueError(f"planes[{k}]: want 2-D uint8 or uint16, one "
+                             f"type for all, with contiguous rows, got "
+                             f"{p.dtype} {tuple(p.shape)} strides "
                              f"{p.stride()}")
     n = len(planes)
     words = torch.zeros(8, dtype=torch.int32, device=dev)
@@ -84,8 +89,8 @@ def frame_hash_device(planes: Sequence[torch.Tensor]) -> torch.Tensor:
             n, (ctypes.c_void_p * n)(*(p.data_ptr() for p in planes)),
             ints(*(p.shape[0] for p in planes)),
             ints(*(p.shape[1] for p in planes)),
-            ints(*(p.stride(0) for p in planes)), words.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            ints(*(p.stride(0) for p in planes)), planes[0].element_size(),
+            words.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"frame_hash launch failed: cudaError {rc}")
     frame_hash_device.launches += 1

@@ -113,13 +113,21 @@ def wedge_mask(bsize: int, wedge_idx: int, wedge_sign: int) -> np.ndarray:
     return out
 
 
+def round0(bd: int) -> int:
+    """InterRound0: 5 at 12 bits, else 3.  A single prediction rounds at
+    14 - round0, and the compound blends at InterPostRound = 7 - round0
+    beyond the 8-bit shifts' 4."""
+    return 5 if bd == 12 else 3
+
+
 def diffwtd_mask(p0: np.ndarray, p1: np.ndarray, mask_type: int,
                  bd: int) -> np.ndarray:
     """DIFFWTD_38 / DIFFWTD_38_INV mask from compound-intermediate
     luma predictions (libaom av1_build_compound_diffwtd_mask_d16).
-    Intermediates are on the (pixel << 4) compound scale, so the
-    pixel-scale Round2(diff, bd-8+4)/16 collapses to one shift."""
-    sh = bd  # (bd - 8) + 4 + 4
+    Intermediates are on the (pixel << InterPostRound) compound scale
+    (4, or 2 at 12 bits), so the pixel-scale Round2(diff, bd - 8 +
+    InterPostRound) / 16 collapses to one shift."""
+    sh = bd + 3 - round0(bd)  # (bd - 8) + InterPostRound + 4
     rnd = 1 << (sh - 5)
     m = np.minimum(38 + ((np.abs(p0 - p1) + rnd) >> sh), 64)
     if mask_type:  # DIFFWTD_38_INV

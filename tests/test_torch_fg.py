@@ -1,7 +1,16 @@
 """The port's film grain (`recon/fg_torch.py`) against the JAX package's
 device path (`fg_jax.DeviceFilmGrain`) and its host reference
 (`fg_ref.FilmGrain`), on seeded planes: the cases of
-tests/test_fg_jax.py.  Tolerance 0: the arithmetic is integer."""
+tests/test_fg_jax.py.  Above 8 bits the JAX package indexes the scaling
+LUT at clip(v, 0, 255), which dav1d does not; there the port is held
+against fg_ref with the spec's interpolated `scale_lut` (`_fg_ref_spec`)
+and against the port's C grain (`native.film_grain_native`).  Tolerance
+0: the arithmetic is integer."""
+
+import functools
+import inspect
+import types
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -9,9 +18,38 @@ import torch
 
 from easyav1_tpu.video.av1 import fg_ref
 from easyav1_tpu.video.av1.recon.fg_jax import DeviceFilmGrain
+from easyav1_tpu_torch.native import film_grain_native
 from easyav1_tpu_torch.video.av1.recon import fg_torch
 
 from test_fg_jax import _Seq, _params
+
+
+@functools.lru_cache(maxsize=None)
+def _fg_ref_spec():
+    """fg_ref with the spec's scale_lut (7.18.3.5): above 8 bits the LUT
+    is read at v >> (bd - 8), and the low bits interpolate to the next
+    entry.  fg_ref, fg_jax and the JAX package's C decoder read it at
+    clip(v, 0, 255) and differ from dav1d there (hbd_10fg and hbd_12fg in
+    test_torch_hbd.py hold the port against dav1d)."""
+    src = inspect.getsource(fg_ref)
+    for v in ("src", "val"):
+        old = f"scale = lut[np.clip({v}, 0, 255)]"
+        assert src.count(old) == 1
+        src = src.replace(old, f"scale = _scale_lut(lut, {v}, bd)")
+    src += """
+
+def _scale_lut(lut, v, bd):
+    if bd == 8:
+        return lut[np.clip(v, 0, 255)]
+    sh = bd - 8
+    x = np.clip(v >> sh, 0, 255)
+    rem = v - (x << sh)
+    hi = lut[np.minimum(x + 1, 255)]
+    return lut[x] + (((hi - lut[x]) * rem + (1 << (sh - 1))) >> sh)
+"""
+    mod = types.ModuleType("fg_ref_spec")
+    exec(compile(src, "fg_ref_spec", "exec"), mod.__dict__)
+    return mod
 
 
 def _chroma(fg):
@@ -72,6 +110,7 @@ CASES = {
     "422": (_chroma, {}, {"ssx": 1, "ssy": 0}),
     "mono": (_params, {}, {"mono": True}),
     "10bit": (_ten_bit, {}, {"bd": 10}),
+    "12bit_chroma": (_chroma, {}, {"bd": 12}),
     "libaom_like": (_libaom_like, {"lag": 3, "seed": 43962},
                     {"w": 190, "h": 130}),
 }
@@ -94,20 +133,28 @@ def test_grain_equals_reference_and_jax(case):
     if not mono:
         planes += [rng.integers(0, 1 << bd, (ch, cw)).astype(dt)
                    for _ in range(2)]
-    want = fg_ref.FilmGrain(fg, seq, bd).apply(planes)
-    jax_got = DeviceFilmGrain(fg, seq, bd).apply(planes)
+    if bd == 8:
+        want = fg_ref.FilmGrain(fg, seq, bd).apply(planes)
+        other = DeviceFilmGrain(fg, seq, bd).apply(planes)
+    else:
+        want = _fg_ref_spec().FilmGrain(fg, seq, bd).apply(planes)
+        color = SimpleNamespace(bitdepth=bd, subsampling_x=ssx,
+                                subsampling_y=ssy, mono_chrome=mono)
+        other = film_grain_native(fg, SimpleNamespace(color=color),
+                                  [p.copy() for p in planes])
     # torch has no uint16 arithmetic: 10-bit planes travel as int32
     tdt = torch.uint8 if bd == 8 else torch.int32
     tin = [torch.from_numpy(p.astype(np.int32)).to(tdt) for p in planes]
     kept = [t.clone() for t in tin]
     got = fg_torch.FilmGrain(fg, seq, bd, "cpu").apply(tin)
-    for i, (a, j, b) in enumerate(zip(want, jax_got, got)):
+    for i, (a, j, b) in enumerate(zip(want, other, got)):
         assert b.dtype == tdt and tuple(b.shape) == a.shape
         d = np.abs(a.astype(int) - b.numpy().astype(int))
         assert d.max() == 0, (f"plane {i}: maxdiff {d.max()} at "
                               f"{np.argwhere(d > 0)[:4].tolist()}")
+        what = "jax" if bd == 8 else "the C grain"
         assert np.array_equal(np.asarray(j).astype(int),
-                              b.numpy().astype(int)), f"plane {i} vs jax"
+                              b.numpy().astype(int)), f"plane {i} vs {what}"
         # grain is output only: the reference planes stay as they were
         assert torch.equal(tin[i], kept[i])
     assert any(not torch.equal(a, b) for a, b in zip(got, tin))

@@ -37,6 +37,7 @@ from easyav1_tpu_torch.video.av1.recon import mc_plan as MP
 from easyav1_tpu_torch.video.av1.recon import records as R
 from easyav1_tpu_torch.video.av1.recon.inter_exec import InterRecon, ii_masks
 
+from test_torch_fixtures import steady
 from test_torch_pipe import _assert_frames_equal, _decode, _port
 
 PAD = JX.PAD
@@ -201,13 +202,13 @@ def test_mc_units_plain_keeps_unit_order():
 def _plan_fixtures():
     from test_av1_inter_real import COMP_SCOPE, inter_fixture
     return {
-        "comp_masked": lambda: inter_fixture(
-            "comp_masked", frames=8, crf=30, scope=COMP_SCOPE, extra=(
+        "comp_masked": lambda: steady(
+            inter_fixture, "comp_masked", frames=8, crf=30, scope=COMP_SCOPE, extra=(
                 "vopt:aom-params=enable-interintra-comp=0:"
                 "enable-dist-wtd-comp=0:enable-obmc=0:"
                 "enable-warped-motion=0:enable-global-motion=0",))[0],
-        "comp_mm": lambda: inter_fixture(
-            "comp_mm", frames=6, scope=COMP_SCOPE, extra=(
+        "comp_mm": lambda: steady(
+            inter_fixture, "comp_mm", frames=6, scope=COMP_SCOPE, extra=(
                 "vopt:aom-params=enable-masked-comp=0:"
                 "enable-interintra-comp=0:enable-onesided-comp=0:"
                 "enable-dist-wtd-comp=0",))[0],
@@ -217,8 +218,8 @@ def _plan_fixtures():
 
 def _obmc_fixture():
     from test_av1_inter_real import inter_fixture
-    return inter_fixture(
-        "obmc_nojnt", w=192, h=128, crf=26, frames=8,
+    return steady(
+        inter_fixture, "obmc_nojnt", w=192, h=128, crf=26, frames=8,
         extra=("vopt:cpu-used=1",
                "vopt:aom-params=enable-global-motion=0:"
                "enable-warped-motion=0:enable-interintra-comp=0:"
@@ -227,8 +228,8 @@ def _obmc_fixture():
 
 def _warp_fixture():
     from test_av1_inter_real import inter_fixture
-    return inter_fixture(
-        "warp_nojnt", w=192, h=128, crf=26, frames=8,
+    return steady(
+        inter_fixture, "warp_nojnt", w=192, h=128, crf=26, frames=8,
         extra=("vopt:cpu-used=1",
                "vopt:aom-params=enable-global-motion=0:"
                "enable-interintra-comp=0:enable-dist-wtd-comp=0",))[0]
@@ -237,14 +238,14 @@ def _warp_fixture():
 def _plain_fixture():
     from fixtures import make_fixture
     from test_mc_jax import _VOPTS
-    return make_fixture(w=320, h=180, fps=30, frames=12, gop=999, crf=30,
+    return steady(make_fixture, w=320, h=180, fps=30, frames=12, gop=999, crf=30,
                         audio_secs=0, content=1, vopt=_VOPTS)
 
 
 def _masked_fixture():
     from test_av1_inter_real import COMP_SCOPE, inter_fixture
-    return inter_fixture(
-        "comp_masked", frames=8, crf=30, scope=COMP_SCOPE, extra=(
+    return steady(
+        inter_fixture, "comp_masked", frames=8, crf=30, scope=COMP_SCOPE, extra=(
             "vopt:aom-params=enable-interintra-comp=0:"
             "enable-dist-wtd-comp=0:enable-obmc=0:"
             "enable-warped-motion=0:enable-global-motion=0",))[0]
@@ -467,7 +468,7 @@ def test_masked_compound_streams_vs_native(tag, kw, monkeypatch):
     test_masked_pair_streams_vs_native_and_dav1d have them."""
     from test_av1_inter_real import COMP_SCOPE, MASKED_BASE, inter_fixture
 
-    path = str(inter_fixture(tag, frames=8, scope=COMP_SCOPE, extra=(
+    path = str(steady(inter_fixture, tag, frames=8, scope=COMP_SCOPE, extra=(
         "vopt:aom-params=" + MASKED_BASE,), **kw)[0])
     masked = []
     orig = pipe.export_inter_plan
@@ -582,8 +583,8 @@ def test_inter_recon_vs_device_inter_recon(monkeypatch):
     export give the same planes before the postfilters."""
     from test_av1_inter_real import COMP_SCOPE, inter_fixture
 
-    path, _ = inter_fixture(
-        "comp_basic", frames=6, scope=COMP_SCOPE, extra=(
+    path, _ = steady(
+        inter_fixture, "comp_basic", frames=6, scope=COMP_SCOPE, extra=(
             "vopt:aom-params=enable-masked-comp=0:"
             "enable-interintra-comp=0:enable-onesided-comp=0:"
             "enable-dist-wtd-comp=0:enable-obmc=0:enable-warped-motion=0:"
@@ -704,5 +705,47 @@ def test_port_on_card_vs_native(cuda_device):
     easyav1_tpu_torch.stats.update(frames=0, fallbacks=0)
     got = _decode(lambda: easyav1_tpu_torch.EasyAV1(path, device="cuda"))
     assert easyav1_tpu_torch.stats["fallbacks"] == 0
+    os.environ.pop("EASYAV1_PIPE", None)
+    _assert_frames_equal(got, _decode(lambda: native_session(path)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,w,h,bd", [(21, 416, 240, 10),
+                                         (22, 416, 240, 12),
+                                         (5, 99, 75, 10)])
+def test_mc_kernels_uint16_vs_plain(seed, w, h, bd, cuda_device):
+    """The uint16 instantiations of 6a and 6b on a random 10- or 12-bit
+    MC program against their plain versions, exactly."""
+    prog = random_mc_program(seed, w, h, bd=bd)
+
+    def run(fn_mc, fn_obmc):
+        dev = cuda_device
+        planes = [torch.zeros(d, dtype=torch.int32, device=dev)
+                  for d in prog["dims"]]
+        resid = [torch.from_numpy(r).to(dev) for r in prog["resid"]]
+        refs = [[torch.from_numpy(r).to(dev) for r in rs]
+                for rs in prog["refs"]]
+        planes = fn_mc(planes, resid, refs, prog["plan"], bd)
+        return fn_obmc(planes, resid, refs, prog["plan"], bd)
+
+    got = run(inter_mc.mc_units, inter_mc.obmc)
+    want = run(inter_mc.mc_units_plain, inter_mc.obmc_plain)
+    for p, (a, b) in enumerate(zip(got, want)):
+        _assert_equal(a.cpu().numpy(), b.cpu().numpy(), f"plane {p}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n", [("hbd_10i.webm", 4), ("hbd_10p.webm", 4),
+                                    ("hbd_10pf.webm", 4),
+                                    ("hbd_12i.webm", 4),
+                                    ("hbd_12p.webm", 8)])
+def test_hbd_stream_on_card_vs_native(name, n, cuda_device):
+    """The committed 10- and 12-bit streams on the card: uint16 frames,
+    no fallback, equal to the native C session."""
+    path = os.path.join(os.path.dirname(SMOKE_STREAM), name)
+    easyav1_tpu_torch.stats.update(frames=0, fallbacks=0)
+    got = _decode(lambda: easyav1_tpu_torch.EasyAV1(path, device="cuda"))
+    assert easyav1_tpu_torch.stats == {"frames": n, "fallbacks": 0}
+    assert got[0][0].dtype == np.uint16
     os.environ.pop("EASYAV1_PIPE", None)
     _assert_frames_equal(got, _decode(lambda: native_session(path)))

@@ -39,6 +39,7 @@ from easyav1_tpu_torch.video.av1.recon.intra_strip import (
 from fixtures import CACHE, tool
 from test_av1_multitg import _fixture as multitg_fixture
 from test_av1_real import real_fixture
+from test_torch_fixtures import steady
 
 SEEDS = [301, 304, 305, 317, 310]
 
@@ -137,7 +138,7 @@ def _first_keyframe(path):
                                      ("qcif", 176, 144)])
 def test_intra_recon_vs_native(tag, w, h):
     """Raw recon (LF and CDEF off) of the first key frame."""
-    path, _ = real_fixture(tag, w, h)
+    path, _ = steady(real_fixture, tag, w, h)
     lib, seq, hdr, tiles = _first_keyframe(path)
     out, bufs, _blob, (fp_rc, _keep) = nat._run_tiles(lib, seq, hdr, tiles)
     rp = nat._build_rp(seq, hdr)
@@ -162,8 +163,9 @@ def test_intra_recon_vs_native(tag, w, h):
 
 
 def _sb128_fixture():
-    """The all-intra 512x512 stream with 128x128 SBs, made as
-    test_av1_sb128.py::test_sb128_intra_rich makes it (same name)."""
+    """The all-intra 512x512 stream with 128x128 SBs, made with the
+    arguments of test_av1_sb128.py::test_sb128_intra_rich; run under
+    `steady`."""
     tail = ["w=512", "h=512", "fps=30", "frames=2", "gop=1", "crf=30",
             "audio_secs=0", "content=1", "vopt:sb-size=128"]
     out = CACHE / f"sb128_{hashlib.sha1(' '.join(tail).encode()).hexdigest()[:8]}.webm"
@@ -177,11 +179,11 @@ def _sb128_fixture():
 # real key frames: (SB size, tile columns) = (64, 1), (64, 2), (128, 1),
 # (128, 4)
 KEY_FRAMES = {
-    "qcif": lambda: real_fixture("qcif", 176, 144)[0],
-    "tiles2x2": lambda: multitg_fixture(320, 240, 3, 1, 4)[0],
-    "sb128": _sb128_fixture,
-    "sb128_tiles4": lambda: multitg_fixture(640, 360, 3, 100, 2,
-                                            tile_cols=2, tile_rows=0)[0],
+    "qcif": lambda: steady(real_fixture, "qcif", 176, 144)[0],
+    "tiles2x2": lambda: steady(multitg_fixture, 320, 240, 3, 1, 4)[0],
+    "sb128": lambda: steady(_sb128_fixture),
+    "sb128_tiles4": lambda: steady(multitg_fixture, 640, 360, 3, 100, 2,
+                                   tile_cols=2, tile_rows=0)[0],
 }
 SB_TILES = {"qcif": (64, 1), "tiles2x2": (64, 2), "sb128": (128, 1),
             "sb128_tiles4": (128, 4)}
@@ -353,5 +355,26 @@ def test_kernel_vs_plain(seed, cuda_device):
                            (sbh, sbw, torch.from_numpy(spans).to(cuda_device)))
     torch.cuda.synchronize()
     want = strip_exec_frame_plain(t, r, prog["dims"], 8)
+    for p, (a, b) in enumerate(zip(got, want)):
+        _assert_equal(a.cpu().numpy(), b.cpu().numpy(), f"plane {p}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,bd", [(301, 10), (305, 10), (304, 12),
+                                     (317, 12)])
+def test_kernel_vs_plain_high_bit_depth(seed, bd, cuda_device):
+    """The kernel at 10 and 12 bits on a program's whole frame under the
+    sequential schedule, against its plain version."""
+    prog = random_program(seed, n_rand=64, bd=bd)
+    pf = program_frame(prog)
+    fields = R.preprocess_units(pf["units"], prog["dims"])
+    sbh, sbw, spans = sequential_schedule(fields, prog["dims"])
+    t = [torch.from_numpy(f).to(cuda_device) for f in fields]
+    r = [torch.from_numpy(x).to(cuda_device) for x in pf["resid"]]
+    got = strip_exec_frame(t, r, prog["dims"], bd,
+                           (sbh, sbw, torch.from_numpy(spans).to(cuda_device)))
+    torch.cuda.synchronize()
+    want = strip_exec_frame_plain(t, r, prog["dims"], bd)
+    assert max(int(w.max()) for w in want) > 255
     for p, (a, b) in enumerate(zip(got, want)):
         _assert_equal(a.cpu().numpy(), b.cpu().numpy(), f"plane {p}")

@@ -22,6 +22,7 @@ from easyav1_tpu import api as ref_api
 from easyav1_tpu_torch.api import frame_hash, native_session
 
 from fixtures import make_fixture
+from test_torch_fixtures import SMOKE, steady
 
 REPO = Path(__file__).resolve().parent.parent
 SOURCES = sorted(str(p.relative_to(REPO)) for p in
@@ -58,28 +59,25 @@ def _gop4():
 
 def _grain():
     from test_frame_parallel import _fixture
-    return _fixture("grain", w=160, h=128, frames=8, gop=8, crf=30,
-                    **{"vopt:denoise-noise-level": 12})
-
-
-def _ten_bit_inter():
-    from test_av1_hbd import BASE, fixture
-    return fixture("10p", **BASE, gop=100, bitdepth=10)
+    return steady(_fixture, "grain", w=160, h=128, frames=8, gop=8, crf=30,
+                  **{"vopt:denoise-noise-level": 12})
 
 
 def _sb128_tiles4():
     from test_av1_multitg import _fixture
-    return _fixture(640, 360, 3, 100, 2, tile_cols=2, tile_rows=0)[0]
+    return steady(_fixture, 640, 360, 3, 100, 2, tile_cols=2,
+                  tile_rows=0)[0]
 
 
-# each made as the test named beside it makes it, so a clean cache
-# encodes nothing new
+# each made as the helper of the test named beside it makes it, under the
+# port's own names (test_torch_fixtures.steady), or committed
 FIXTURES = {
     "gop4": _gop4,                          # test_torch_pipe.py
-    "audio": lambda: make_fixture(frames=8, audio_secs=1.0, w=96, h=96,
-                                  fps=10, gop=1),   # test_capi.py
+    "audio": lambda: steady(make_fixture, frames=8, audio_secs=1.0, w=96,
+                            h=96, fps=10, gop=1),   # test_capi.py
     "grain": _grain,                        # test_frame_parallel.py
-    "10bit_inter": _ten_bit_inter,          # test_av1_hbd.py
+    # test_av1_hbd.py's hbd_10p, committed
+    "10bit_inter": lambda: SMOKE / "hbd_10p.webm",
     "sb128_tiles4": _sb128_tiles4,          # test_av1_multitg.py
 }
 

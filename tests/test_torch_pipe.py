@@ -26,13 +26,14 @@ from easyav1_tpu.video.av1.backend import AV1Backend
 from easyav1_tpu_torch.video.av1.backend import AV1Backend as TorchAV1Backend
 
 from fixtures import CACHE, tool
+from test_torch_fixtures import smoke_oracle, steady
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _cached(prefix, args_tail, oracle=True):
-    """A stream of the fixture cache, made as test_av1_filter_intra.py
-    makes it (same arguments, same name)."""
+    """A stream made with test_av1_filter_intra.py's arguments, and
+    dav1d's decode of it (oracle); run under `steady`."""
     phash = hashlib.sha1(" ".join(args_tail).encode()).hexdigest()[:8]
     out = CACHE / f"{prefix}_{phash}.webm"
     if not out.exists():
@@ -47,7 +48,7 @@ def _cached(prefix, args_tail, oracle=True):
 
 
 def _fi_fixture(cpu, w, h):
-    return _cached("fi", [
+    return steady(_cached, "fi", [
         f"w={w}", f"h={h}", "fps=10", "frames=3", "gop=1", "crf=30",
         "audio_secs=0", f"cpu-used={cpu}", "vopt:enable-restoration=0",
         "vopt:enable-palette=0", "vopt:enable-intrabc=0",
@@ -55,7 +56,7 @@ def _fi_fixture(cpu, w, h):
 
 
 def _gop4_fixture():
-    return _cached("fii", [
+    return steady(_cached, "fii", [
         "w=128", "h=96", "fps=10", "frames=4", "gop=4", "crf=30",
         "audio_secs=0", "cpu-used=4", "vopt:enable-restoration=0",
         "vopt:enable-palette=0", "vopt:enable-intrabc=0",
@@ -179,14 +180,14 @@ def test_gop4_references_cross_between_device_and_c(declined, monkeypatch):
     ("444i", {"ss": 444}, 1),         # the frame with chroma CfL
     ("422i", {"ss": 422}, 0),
     ("monoi", {"ss": "mono"}, 0),
-    ("10i", {"bitdepth": 10}, 4),     # the slice is 8-bit
+    ("10i", {"bitdepth": 10}, 0),     # 10-bit frames run on the device
 ])
 def test_formats_run_or_decline_exactly(tag, kv, fallbacks, monkeypatch):
-    """Non-4:2:0 CfL and bit depths above 8 are declined; every frame,
-    run or declined, equals the native decode."""
+    """Non-4:2:0 CfL is declined, 10-bit frames run; every frame, run or
+    declined, equals the native decode."""
     from test_av1_hbd import BASE, fixture
 
-    path = fixture(tag, **BASE, gop=1, **kv)
+    path = steady(fixture, tag, **BASE, gop=1, **kv)
     got = _port(path)
     assert easyav1_tpu_torch.stats == {"frames": 4, "fallbacks": fallbacks}
     _assert_frames_equal(got, _reference_native(path, monkeypatch))
@@ -251,8 +252,8 @@ def test_port_never_imports_jax():
     module of jax or of the JAX package (easyav1_tpu) is imported."""
     from fixtures import make_fixture
 
-    audio = make_fixture(frames=8, audio_secs=1.0, w=96, h=96, fps=10,
-                         gop=1)
+    audio = steady(make_fixture, frames=8, audio_secs=1.0, w=96, h=96,
+                   fps=10, gop=1)
     script = (
         "import json, os, sys\n"
         "import easyav1_tpu_torch as T\n"
@@ -311,7 +312,7 @@ def test_first_frame_inputs_vs_native(tag, w, h, crf, frames, extra,
         postfilter_apply, postfilter_maps)
     from test_av1_real import real_fixture
 
-    path, _ = real_fixture(tag, w, h, crf, frames, extra)
+    path, _ = steady(real_fixture, tag, w, h, crf, frames, extra)
     key = first_frame_inputs(str(path), torch.device("cpu"))
     assert key is not None and key["units"] > 0
     monkeypatch.delenv("EASYAV1_PIPE", raising=False)
@@ -349,11 +350,9 @@ NEW_SMOKE = [("lreal_mix_e8bf32ba.webm", 1, True),
 
 
 def _dav1d_frames(path, tag):
-    """Every frame of a stream as the dav1d oracle tool decodes it."""
-    prefix = CACHE / f"torch_{tag}"
-    CACHE.mkdir(parents=True, exist_ok=True)
-    subprocess.run([str(tool("oracle")), str(path), str(prefix)],
-                   check=True, capture_output=True)
+    """Every frame of a stream of tests/data/smoke/ as the dav1d oracle
+    tool decodes it."""
+    prefix = smoke_oracle(os.path.basename(path))
     meta = json.loads(prefix.with_suffix(".json").read_text())
     w, h = meta["width"], meta["height"]
     raw = np.fromfile(prefix.with_suffix(".yuv"), dtype=np.uint8)
@@ -401,7 +400,7 @@ def test_lr_cached_streams(tag, w, h, crf, extra, monkeypatch):
     from easyav1_tpu_torch.api import native_session
     from test_av1_lr_real import lr_fixture
 
-    path, prefix = lr_fixture(tag, w, h, crf, 1, extra)
+    path, prefix = steady(lr_fixture, tag, w, h, crf, 1, extra)
     monkeypatch.delenv("EASYAV1_PIPE", raising=False)
     got = _port(path)
     assert easyav1_tpu_torch.stats == {"frames": 1, "fallbacks": 0}
@@ -521,11 +520,14 @@ def test_covers_declines_only_high_bit_depth():
     from types import SimpleNamespace as NS
     from easyav1_tpu_torch.native.pipe import covers
 
+    # every bit depth of AV1 runs, superres, LR and grain too; only a
+    # depth the kernels have no instantiation for is declined
     hdr = NS(use_superres=True, lr=NS(uses_lr=True),
              film_grain=NS(apply_grain=True))
-    assert covers(NS(color=NS(bitdepth=8)), hdr)
-    assert not covers(NS(color=NS(bitdepth=10)), hdr)
-    assert not covers(NS(color=NS(bitdepth=12)), NS())
+    for bd in (8, 10, 12):
+        assert covers(NS(color=NS(bitdepth=bd)), hdr)
+        assert covers(NS(color=NS(bitdepth=bd)), NS())
+    assert not covers(NS(color=NS(bitdepth=16)), hdr)
 
 
 @pytest.mark.parametrize("tag,w,h,crf,extra,lf_off", [

@@ -24,6 +24,7 @@ from easyav1_tpu_torch.video.av1.recon import cdef_torch
 from easyav1_tpu_torch.video.av1.recon.postfilter import postfilter_frame
 
 from test_av1_real import NEAR_DEFAULT, real_fixture
+from test_torch_fixtures import steady
 from test_torch_intra import _assert_equal, _first_keyframe
 
 ODD_CDEF = ("vopt:enable-restoration=0", "vopt:enable-palette=0",
@@ -32,7 +33,7 @@ ODD_CDEF = ("vopt:enable-restoration=0", "vopt:enable-palette=0",
 
 def _raw_frame(tag, w, h, crf, extra, frames=1):
     """C entropy + raw C recon of the first frame, and its host maps."""
-    path, _ = real_fixture(tag, w, h, crf, frames, extra)
+    path, _ = steady(real_fixture, tag, w, h, crf, frames, extra)
     lib, seq, hdr, tiles = _first_keyframe(path)
     out, bufs, _blob, (fp_rc, _keep) = nat._run_tiles(lib, seq, hdr, tiles)
     rp = nat._build_rp(seq, hdr)

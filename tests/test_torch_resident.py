@@ -243,3 +243,18 @@ def test_kernel_vs_plain_and_api(k, cuda_device):
         views = [t[1:, 3:-2] for t in tp]
         want = api.frame_hash([v.cpu().numpy() for v in views])
         assert resident.hash_value(resident.frame_hash_device(views)) == want
+
+
+@pytest.mark.cuda
+def test_hash_kernel_uint16_vs_plain(cuda_device):
+    """The kernel's uint16 instantiation on whole 10-bit planes and on
+    views off a 16-byte boundary, against the plain hash and
+    `api.frame_hash`."""
+    rng = np.random.default_rng(3)
+    host = [rng.integers(0, 1024, d).astype(np.uint16)
+            for d in ((67, 131), (34, 66), (34, 66))]
+    planes = [torch.from_numpy(p).to(cuda_device) for p in host]
+    for pl in (planes, [t[1:, 3:-2] for t in planes]):
+        got = resident.hash_value(resident.frame_hash_device(pl))
+        assert got == resident.hash_value(resident.frame_hash_plain(pl)) \
+            == api.frame_hash([t.cpu().numpy() for t in pl])

@@ -57,5 +57,5 @@ template <class F> void host_launch(int grid, int threads, F fn) {
     for (auto& t : ts) t.join();
   }
 }
-#define MC_LAUNCH(kernel, grid, stream, ...) \
-  host_launch(grid, THREADS, [=] { kernel(__VA_ARGS__); })
+#define MC_LAUNCH(kernel, grid, threads, stream, ...) \
+  host_launch(grid, threads, [=] { kernel(__VA_ARGS__); })

@@ -11,8 +11,9 @@ kernels' index arithmetic, staging, passes and blends run as written.
 Builds the source (with any -D design switches given) into
 easyav1_tpu_torch/_build/inter_mc_host.so, runs kernels 6a and 6b
 through `inter_mc.mc_launch` and `obmc_launch` on CPU tensors for
-seeded random MC programs of even and odd sizes, and holds each plane
-against `mc_units_plain` and `obmc_plain`, tolerance 0.  It says nothing
+seeded random MC programs of even and odd sizes, at 8 bits (the uint8
+instantiations) and at 10 and 12 bits (the uint16 ones), and holds each
+plane against `mc_units_plain` and `obmc_plain`, tolerance 0.  It says nothing
 about what nvcc accepts, and nothing about speed.
 """
 
@@ -30,8 +31,11 @@ from easyav1_tpu_torch import _build, convert  # noqa: E402
 from easyav1_tpu_torch.unit_programs import random_mc_program  # noqa: E402
 from easyav1_tpu_torch.video.av1.recon import inter_mc  # noqa: E402
 
-PROGRAMS = [(12, 100, 76), (14, 100, 76), (21, 416, 240), (5, 99, 75),
-            (7, 201, 133)]
+# (seed, width, height, bit depth)
+PROGRAMS = [(12, 100, 76, 8), (14, 100, 76, 8), (21, 416, 240, 8),
+            (5, 99, 75, 8), (7, 201, 133, 8), (12, 100, 76, 10),
+            (21, 416, 240, 10), (5, 99, 75, 10), (14, 100, 76, 12),
+            (7, 201, 133, 12)]
 
 
 def build(flags):
@@ -44,21 +48,22 @@ def build(flags):
          os.path.join(_build.CSRC, "inter_mc.cu"), "-o", out], check=True)
     lib = ctypes.CDLL(out)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.inter_mc_launch, lib.obmc_launch):
-        fn.restype = ci
-        fn.argtypes = [ci, *[vp] * 7, vp, vp, vp, ci, vp]
+    for name in inter_mc.LAUNCHES:
+        getattr(lib, name).restype = ci
+        getattr(lib, name).argtypes = [ci, *[vp] * 7, vp, vp, vp, ci, vp]
     return lib
 
 
-def host_launch(fn, planes, resid, refs, tabs, table, bd):
+def host_launch(name, planes, resid, refs, tabs, table, bd):
     """`inter_mc._launch` without a device or a stream."""
     layout = (ctypes.c_int * len(tabs["layout"]))(*tabs["layout"])
-    return fn(len(planes), *inter_mc._frame_args(planes, resid, refs),
+    fn = getattr(inter_mc._lib(), name + ("16" if bd > 8 else ""))
+    return fn(len(planes), *inter_mc._frame_args(planes, resid, refs, bd),
               tabs["buf"].data_ptr(), layout,
               convert.tables(planes[0].device)[table].data_ptr(), bd, None)
 
 
-def run(prog, kernels):
+def run(prog, kernels, bd):
     """(planes after MC, planes after OBMC) of a program."""
     cpu = torch.device("cpu")
     planes = [torch.zeros(d, dtype=torch.int32) for d in prog["dims"]]
@@ -67,15 +72,15 @@ def run(prog, kernels):
     plan = prog["plan"]
     if kernels:
         inter_mc.mc_launch(planes, resid, refs,
-                           inter_mc.upload(inter_mc.mc_tables(plan), cpu), 8)
+                           inter_mc.upload(inter_mc.mc_tables(plan), cpu), bd)
     else:
-        inter_mc.mc_units_plain(planes, resid, refs, plan, 8)
+        inter_mc.mc_units_plain(planes, resid, refs, plan, bd)
     after_mc = [p.clone() for p in planes]
     if kernels:
         inter_mc.obmc_launch(planes, resid, refs, inter_mc.upload(
-            inter_mc.obmc_tables(plan), cpu), 8)
+            inter_mc.obmc_tables(plan), cpu), bd)
     else:
-        inter_mc.obmc_plain(planes, resid, refs, plan, 8)
+        inter_mc.obmc_plain(planes, resid, refs, plan, bd)
     return after_mc, planes
 
 
@@ -84,12 +89,12 @@ def main():
     inter_mc._lib = lambda: lib
     inter_mc._launch = host_launch
     worst = 0
-    for seed, width, height in PROGRAMS:
-        prog = random_mc_program(seed, width, height)
-        got, want = run(prog, True), run(prog, False)
+    for seed, width, height, bd in PROGRAMS:
+        prog = random_mc_program(seed, width, height, bd=bd)
+        got, want = run(prog, True, bd), run(prog, False, bd)
         errs = [max(int((a - b).abs().max()) for a, b in zip(g, w))
                 for g, w in zip(got, want)]
-        print(f"program seed {seed} {width}x{height}: 6a max_abs_err "
+        print(f"program seed {seed} {width}x{height} {bd}-bit: 6a max_abs_err "
               f"{errs[0]}, 6b max_abs_err {errs[1]}", flush=True)
         worst = max(worst, *errs)
     if worst:

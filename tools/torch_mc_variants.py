@@ -136,7 +136,7 @@ def first_launchers(lib):
     def mc(planes, resid, refs, tabs, bd):
         dev = planes[0].device
         rc = lib.inter_mc_launch(
-            len(planes), *inter_mc._frame_args(planes, resid, refs),
+            len(planes), *inter_mc._frame_args(planes, resid, refs, 8),
             tabs["tiles"].data_ptr(), tabs["tiles"].shape[0],
             tabs["singles"].data_ptr(), tabs["pairs"].data_ptr(),
             tabs["warps"].data_ptr(), tabs["masks"].data_ptr(),
@@ -148,7 +148,7 @@ def first_launchers(lib):
         dev = planes[0].device
         for k, tiles, units in passes:
             rc = lib.obmc_launch(
-                k, len(planes), *inter_mc._frame_args(planes, resid, refs),
+                k, len(planes), *inter_mc._frame_args(planes, resid, refs, 8),
                 tiles.data_ptr(), tiles.shape[0], units.data_ptr(),
                 convert.tables(dev)["obmc_masks"].data_ptr(), bd, stream(dev))
             assert rc == 0, rc
@@ -192,9 +192,9 @@ def run_variant(name):
     else:
         inter_mc._lib = lambda: lib
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.inter_mc_launch, lib.obmc_launch):
-            fn.restype = ci
-            fn.argtypes = [ci, *[vp] * 7, vp, vp, vp, ci, vp]
+        for name in inter_mc.LAUNCHES:
+            getattr(lib, name).restype = ci
+            getattr(lib, name).argtypes = [ci, *[vp] * 7, vp, vp, vp, ci, vp]
         mc, obmc = inter_mc.mc_launch, inter_mc.obmc_launch
         mc_tabs = lambda plan: inter_mc.upload(inter_mc.mc_tables(plan), dev)
         obmc_tabs = lambda plan: inter_mc.upload(inter_mc.obmc_tables(plan),
