@@ -2,11 +2,11 @@
 
     python3 chip_smoke.py
 
-Builds the port's four libraries from the checkout at first use, all at
+Builds the port's five libraries from the checkout at first use, all at
 once: the C decoder (gcc, `easyav1_tpu_torch/native`) and the CUDA
 kernels (nvcc, `easyav1_tpu_torch/csrc/intra_strip.cu`,
-`csrc/inter_mc.cu` and `csrc/frame_hash.cu`, whose ptxas reports it
-prints).  Then:
+`csrc/inter_mc.cu`, `csrc/frame_hash.cu` and `csrc/itx.cu`, whose ptxas
+reports it prints).  Then:
 
 1. holds every kernel against its plain torch version on the card,
    exactly: the strip kernel on seeded random unit programs of every
@@ -31,7 +31,12 @@ prints).  Then:
    programs at 10 and 12 bits, on the key frames of three small 10- and
    12-bit streams and in place on a 4K 10-bit inter frame's pred units
    (the uint16 6a on that frame too), and on the 4K 10-bit key frame
-   under the wavefront, with 5 more runs bit-equal to the first;
+   under the wavefront, with 5 more runs bit-equal to the first; the
+   device residual composer (`csrc/itx.cu`) on seeded random transform
+   programs at 8, 10 and 12 bits with every legal (tx_size, tx_type)
+   pair, at 1080p 4:2:0 and at an odd 4:4:4 size, and on the records of
+   the 1080p intra and 4K 10-bit key frames (also against the host C
+   composer), with 20 runs of the 4K 10-bit one bit-equal to the first;
 2. drives the port's main path through `easyav1_tpu_torch.EasyAV1(path,
    device="cuda")`, each stream with the launch counts set to 0 just
    before it and read just after: all 30 frames of
@@ -52,7 +57,11 @@ prints).  Then:
    on every stream (at most RESIDENT_FRAMES frames of each): its device
    hashes equal `api.frame_hash` of the same frames pulled through the
    API, no plane is downloaded, and the hash kernel launches once a
-   frame;
+   frame; then the main path again with the device residual composer
+   (`host_residual=False`) on the 1080p intra and inter streams, the 4K
+   10-bit stream, inter_modes_96x96, hbd_12p and hbd_444x10, each with
+   its own counts: hash-equal to the native C session, no fallback, one
+   device composer launch a frame that has transforms;
 3. times, in this run (CUDA events for kernels, the host clock around
    synchronised work for stages): the strip kernel under the wavefront
    and the sequential schedule at 1080p and 4K, 6a on a 1080p and a 4K
@@ -68,7 +77,12 @@ prints).  Then:
    the uint16 6a and the strip kernel on an inter frame, 6b on a random
    10-bit program and the hash kernel on a 4K 10-bit frame beside their
    bounds (2 bytes a reference or frame sample), the stages of its inter
-   frames, and its port, resident and native fps.
+   frames, and its port, resident and native fps; the device composer
+   on the two key frames' records beside its plain version and its
+   bound; and on the 1080p intra, 1080p inter and 4K 10-bit streams,
+   with each composer, the stages "prepare", "compose" and "upload",
+   the residual's upload bytes a frame and the port's fps, beside the
+   native C session's.
 
 The smoke imports only torch and `easyav1_tpu_torch`, and checks that
 neither jax nor easyav1_tpu was imported.  Every phase raises on
@@ -94,9 +108,13 @@ from easyav1_tpu_torch.native import pipe
 from easyav1_tpu_torch.native.pipe import first_frame_inputs
 from easyav1_tpu_torch.unit_programs import (
     program_frame, random_ibc_program, random_interintra_program,
-    random_mc_program, random_program)
+    random_mc_program, random_program, random_tx_program)
+from easyav1_tpu_torch.video.av1 import itx_ref
+from easyav1_tpu_torch.video.av1 import tables as T
 from easyav1_tpu_torch.video.av1.recon import (fg_torch, inter_mc, intra_strip,
-                                               lr_torch, resident, sr_torch)
+                                               itx_torch, lr_torch, resident,
+                                               sr_torch)
+from easyav1_tpu_torch.video.av1.recon.intra_exec import IntraRecon
 from easyav1_tpu_torch.video.av1.headers import FilmGrainParams
 from easyav1_tpu_torch.video.av1.recon.mc_plan import (
     P_MODE, P_PRED0, P_PRED1, P_VALID, P_X, P_Y, S_FH, S_FV, S_IX, S_IY,
@@ -104,6 +122,7 @@ from easyav1_tpu_torch.video.av1.recon.mc_plan import (
     W_Y)
 from easyav1_tpu_torch.video.av1.recon.inter_exec import InterRecon, ii_masks
 from easyav1_tpu_torch.video.av1.recon.records import (F_H, F_RES, F_W,
+                                                       compose_residual_host,
                                                        preprocess_units)
 from easyav1_tpu_torch.video.av1.recon.postfilter import (postfilter_apply,
                                                           postfilter_maps)
@@ -133,8 +152,18 @@ STRIP_HBD = [(301, 10), (305, 10), (304, 12), (317, 12)]
 # the kernels' launch counters, by the name of the kernels line
 COUNTERS = {"intra_strip": intra_strip.strip_exec_frame,
             "inter_mc": inter_mc.mc_launch, "obmc": inter_mc.obmc_launch,
-            "frame_hash": resident.frame_hash_device}
-KERNEL_SOURCES = ("intra_strip", "inter_mc", "frame_hash")
+            "frame_hash": resident.frame_hash_device,
+            "itx_compose": itx_torch.compose_residual}
+KERNEL_SOURCES = ("intra_strip", "inter_mc", "frame_hash", "itx")
+# (seed, plane dims, bit depth) of the device composer's random
+# programs: 1080p 4:2:0 and an odd 4:4:4 size (crops at the right and
+# bottom edges), each with every legal (tx_size, tx_type) pair
+ITX_PROGRAMS = [(41, [(1080, 1920), (540, 960), (540, 960)], 8),
+                (42, [(719, 1277)] * 3, 8),
+                (43, [(1080, 1920), (540, 960), (540, 960)], 10),
+                (44, [(719, 1277)] * 3, 10),
+                (45, [(1080, 1920), (540, 960), (540, 960)], 12),
+                (46, [(719, 1277)] * 3, 12)]
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 INT32_OPS_PER_S = 33.5e12   # half the 67 TFLOP/s of float32 outside tensor cores
 
@@ -569,6 +598,149 @@ def check_inter_hbd(dev):
     return e_mc, e_strip, c
 
 
+class Records:
+    """A frame's transform records and coefficients on the card, as the
+    device composer reads them, with its plane dims and bit depth."""
+
+    def __init__(self, txs, coeffs, dims, bd, dev):
+        self.txs = torch.as_tensor(txs).to(dev).contiguous()
+        self.coeffs = torch.as_tensor(coeffs).to(dev).contiguous()
+        self.dims, self.bd = [tuple(d) for d in dims], bd
+
+    @classmethod
+    def key_frame(cls, path, dev):
+        k = first_frame_inputs(path, dev, host_residual=False)
+        check(k is not None and k["records"] is not None,
+              f"{path} frame 0 declined")
+        return cls(*k["records"], k["recon"].dims, k["recon"].bd, dev)
+
+    def run(self):
+        return itx_torch.compose_residual(self.txs, self.coeffs, self.dims,
+                                          self.bd)
+
+    def plain(self):
+        return itx_torch.compose_residual_plain(self.txs, self.coeffs,
+                                                self.dims, self.bd,
+                                                self.txs.device)
+
+    def pairs(self):
+        return len(set(map(tuple, self.txs[:, 3:5].tolist())))
+
+    def bound_ms(self):
+        """(ms, bound_by, bytes) of the least time for the kernel's work:
+        the records (32 bytes each) and the coefficients (4) read once,
+        every plane sample written once (2 bytes, 4 at 12 bits: the
+        planes are the output, zeros included), at the HBM rate; against
+        the integer operations of the butterflies counted from
+        `itx_ref` (`itx_ops`) at the int32 rate."""
+        size = torch.tensor([], dtype=itx_torch.residual_dtype(self.bd)
+                            ).element_size()
+        nbytes = (self.txs.numel() * 4 + self.coeffs.numel() * 4
+                  + size * sum(h * w for h, w in self.dims))
+        ms, by = _bound(nbytes, itx_ops(self.txs.cpu().numpy()))
+        return ms, by, nbytes
+
+
+class _Op:
+    """A value of a butterfly whose operations are counted."""
+    count = 0
+
+    def _op(self, _other=None):
+        _Op.count += 1
+        return _Op()
+
+    __add__ = __radd__ = __sub__ = __rsub__ = __mul__ = __rmul__ = _op
+    __rshift__ = __neg__ = _op
+
+
+class _CountXp:
+    """The namespace `itx_ref.transform_1d` takes, counting a clamp as a
+    min and a max."""
+
+    @staticmethod
+    def clip(_x, _mn, _mx):
+        _Op.count += 2
+        return _Op()
+
+    @staticmethod
+    def stack(xs):
+        return xs
+
+
+def _ops_1d(kind, n):
+    """The integer operations of one n-point 1-D transform of `kind`, as
+    itx_ref's butterflies do them."""
+    _Op.count = 0
+    itx_ref.transform_1d(kind, np.array([_Op() for _ in range(n)]), 0, 0,
+                         xp=_CountXp)
+    return _Op.count
+
+
+def itx_ops(txs):
+    """The integer operations of the device composer on records txs: for
+    each transform, its coded rows' row transforms, the rectangular
+    scaling, the row rounding and clamp (4 a sample), its columns'
+    transforms and the final rounding (2 a sample)."""
+    ops, memo = 0, {}
+    for (ts, tt), n in zip(*np.unique(txs[:, 3:5], axis=0,
+                                      return_counts=True)):
+        if (ts, tt) not in memo:
+            w, h = T.TX_WIDTH[ts], T.TX_HEIGHT[ts]
+            adj = T.ADJUSTED_TX_SIZE[ts]
+            aw, ah = T.TX_WIDTH[adj], T.TX_HEIGHT[adj]
+            vk, hk = itx_ref._TX_1D[int(tt)]
+            rect = abs(w.bit_length() - h.bit_length()) == 1
+            memo[ts, tt] = (ah * _ops_1d(hk, w) + 3 * rect * ah * aw
+                            + 4 * ah * w + w * _ops_1d(vk, h) + 2 * h * w)
+        ops += int(n) * memo[ts, tt]
+    return ops
+
+
+def check_itx(dev):
+    """Phase 1: the device composer's kernel against its plain version,
+    tolerance 0: seeded random programs at 8, 10 and 12 bits with every
+    legal (tx_size, tx_type) pair, at 1080p 4:2:0 and at an odd 4:4:4
+    size; the real records of the 1080p intra stream's and the 4K 10-bit
+    stream's key frames, also against the host C composer; then 20 runs
+    of the 4K 10-bit key frame, each bit-equal to the first.  Returns
+    (8-bit error, 10- and 12-bit error, {"1080p", "4K 10-bit"}: those
+    two key frames' records)."""
+    err = {8: 0, 10: 0, 12: 0}
+    for seed, dims, bd in ITX_PROGRAMS:
+        prog = random_tx_program(seed, dims, bd)
+        r = Records(prog["txs"], prog["coeffs"], dims, bd, dev)
+        e = max_err(r.run(), r.plain())
+        print(f"transform program seed {seed} {dims[0][1]}x{dims[0][0]} "
+              f"x{len(dims)} {bd}-bit: {r.txs.shape[0]} transforms, "
+              f"{r.pairs()} pairs, max_abs_err {e}")
+        check(r.pairs() == len(itx_torch.legal_pairs()),
+              f"program seed {seed}: {r.pairs()} pairs")
+        err[bd] = max(err[bd], e)
+    frames = {}
+    for name, path in (("1080p", INTRA_1080), ("4K 10-bit", HBD_4K)):
+        r = frames[name] = Records.key_frame(path, dev)
+        got = r.run()
+        e = max_err(got, r.plain())
+        host = compose_residual_host(r.txs.cpu().numpy(),
+                                     r.coeffs.cpu().numpy(), r.dims, r.bd)
+        e_host = max_err([g.cpu() for g in got],
+                         [torch.from_numpy(h) for h in host])
+        print(f"{name} frame 0 ({r.bd}-bit): {r.txs.shape[0]} transforms, "
+              f"{r.pairs()} pairs, {r.coeffs.numel()} coefficients: "
+              f"max_abs_err {e} against the plain version, {e_host} against "
+              "the host C composer")
+        err[r.bd] = max(err[r.bd], e, e_host)
+    r = frames["4K 10-bit"]
+    first = r.run()
+    for k in range(20):
+        check(all(torch.equal(a, b) for a, b in zip(r.run(), first)),
+              f"4K 10-bit device composer run {k} differs from the first")
+    print("4K 10-bit frame 0: 20 device composer runs bit-equal to the first")
+    check(not any(err.values()),
+          f"device composer vs plain max_abs_err {err} (tolerance 0)")
+    return err[8], max(err[10], err[12]), frames
+
+
 HASH_DIMS = [[(1080, 1920), (540, 960), (540, 960)],     # 1080p 4:2:0
              [(67, 131), (34, 66), (34, 66)], [(1, 1)], [(3, 1031)],
              [(135, 241), (135, 241), (135, 241)]]
@@ -776,38 +948,87 @@ HBD_STREAMS = [("4K 10-bit", HBD_4K, 8, (8, 7, 0)),
                 os.path.join(SMOKE, "hbd_modes12_96x96.webm"), 8, (8, 7, 6))]
 # the resident decode runs at most this many frames of a stream
 RESIDENT_FRAMES = 12
+# the main path again with the device residual composer
+# (host_residual=False): the 8-bit streams, then the 10- and 12-bit ones
+COMPOSER_STREAMS = [s for s in STREAMS if s[0] in (
+    "1080p intra", "1080p inter", "inter modes 96x96")]
+COMPOSER_STREAMS_HBD = [s for s in HBD_STREAMS if s[0] in (
+    "4K 10-bit", "12-bit inter 96x96", "10-bit 4:4:4 96x96")]
+# the native C session's frame hashes, by stream
+NATIVE = {}
 
 
-def main_path(streams):
+def native_hashes(path):
+    if path not in NATIVE:
+        NATIVE[path] = decode_hashes(lambda: native_session(path))[0]
+    return NATIVE[path]
+
+
+class ComposerCalls:
+    """Within the block, the record count of each frame that the recons
+    hand to the device composer (`IntraRecon.compose`): a frame without
+    transforms launches nothing."""
+
+    def __enter__(self):
+        self.calls, self.fn = [], IntraRecon.compose
+
+        def spy(recon, resid):
+            if isinstance(resid, tuple):
+                self.calls.append(int(resid[0].shape[0]))
+            return self.fn(recon, resid)
+
+        IntraRecon.compose = spy
+        return self
+
+    def __exit__(self, *exc):
+        IntraRecon.compose = self.fn
+
+    @property
+    def with_transforms(self):
+        return sum(n > 0 for n in self.calls)
+
+
+def main_path(streams, host_residual=True):
     """Phase 2: the port's main path, hash-equal to native C, each
     stream with the launch counts set to 0 just before it and read just
-    after; then the resident decode of the same stream, its device
-    hashes against those of the frames pulled through the API, with the
-    hash kernel's launches counted.  Returns the launches of each
-    kernel over the streams."""
+    after; with the host composer, then the resident decode of the same
+    stream, its device hashes against those of the frames pulled through
+    the API, with the hash kernel's launches counted.  With the device
+    composer (host_residual False), one device composer launch a frame
+    that has transforms.  Returns the launches of each kernel over the
+    streams."""
     total = dict.fromkeys(COUNTERS, 0)
     for name, path, n, want in streams:
         easyav1_tpu_torch.stats.update(frames=0, fallbacks=0)
         reset_counts()
-        port, _ = decode_hashes(
-            lambda: easyav1_tpu_torch.EasyAV1(path, device="cuda"))
+        with ComposerCalls() as composer:
+            port, _ = decode_hashes(lambda: easyav1_tpu_torch.EasyAV1(
+                path, device="cuda", host_residual=host_residual))
         c = counts()
         stats = dict(easyav1_tpu_torch.stats)
-        native_h, _ = decode_hashes(lambda: native_session(path))
-        print(f"main path {name}: {len(port)} frames, stats {stats}, "
+        native_h = native_hashes(path)
+        mode = "" if host_residual else " (device composer)"
+        print(f"main path {name}{mode}: {len(port)} frames, stats {stats}, "
               f"launches {c}")
         check(len(port) == n and port == native_h,
-              f"{name} hashes: {len(port)} frames, "
+              f"{name}{mode} hashes: {len(port)} frames, "
               f"{sum(a != b for a, b in zip(port, native_h))} differ")
         check(stats["fallbacks"] == 0 and stats["frames"] >= n,
-              f"{name} stats {stats}")
+              f"{name}{mode} stats {stats}")
         # a hidden frame is decoded and not shown: the strip kernel's
         # launches count the decoded frames
+        itx_want = 0 if host_residual else composer.with_transforms
         check(stats["frames"] == want[0]
-              and tuple(c.values()) == want + (0,),
-              f"{name}: launches {c}, want {want} (strip, 6a, 6b)")
+              and tuple(c.values()) == want + (0, itx_want)
+              and len(composer.calls) == (0 if host_residual
+                                          else stats["frames"]),
+              f"{name}{mode}: launches {c}, want {want} (strip, 6a, 6b) and "
+              f"{itx_want} device composer launches; composer calls "
+              f"{composer.calls}")
         for k in total:
             total[k] += c[k]
+        if not host_residual:
+            continue
         easyav1_tpu_torch.stats.update(frames=0, fallbacks=0)
         reset_counts()
         m = min(n, RESIDENT_FRAMES)
@@ -1096,8 +1317,8 @@ def inter_timings(caps, prog, dev):
         log = [d for d in pipe.stage_log if "mc" in d]
     finally:
         pipe.stage_log = None
-    stages = ("entropy", "plan", "prepare", "upload", "mc", "intra",
-              "lf_cdef", "tail")
+    stages = ("entropy", "plan", "prepare", "compose", "upload", "mc",
+              "intra", "lf_cdef", "tail")
     med = {k: sorted(d[k] for d in log)[len(log) // 2] * 1e3 for k in stages}
     print(f"1080p inter stream stages (ms, host clock, device synchronised "
           f"at each stage's end), frame 1: "
@@ -1182,8 +1403,8 @@ def stage_timings(inp, dev):
         key = pipe.stage_log[0]
     finally:
         pipe.stage_log = None
-    stages = ("entropy", "plan", "prepare", "upload", "mc", "intra",
-              "lf_cdef", "sr", "lr", "tail", "grain")
+    stages = ("entropy", "plan", "prepare", "compose", "upload", "mc",
+              "intra", "lf_cdef", "sr", "lr", "tail", "grain")
     med = {k: sorted(d.get(k, 0.0) for d in log)[len(log) // 2] * 1e3
            for k in stages}
     print("1080p LR + grain stream stages (ms, host clock, device "
@@ -1288,8 +1509,8 @@ def hbd_timings(key, c, prog, dev):
         key_log = pipe.stage_log[0]
     finally:
         pipe.stage_log = None
-    stages = ("entropy", "plan", "prepare", "upload", "mc", "intra",
-              "lf_cdef", "lr", "tail")
+    stages = ("entropy", "plan", "prepare", "compose", "upload", "mc",
+              "intra", "lf_cdef", "lr", "tail")
     med = {k: sorted(d.get(k, 0.0) for d in log)[len(log) // 2] * 1e3
            for k in stages}
     print("4K 10-bit stream stages (ms, host clock, device synchronised at "
@@ -1306,6 +1527,85 @@ def hbd_timings(key, c, prog, dev):
           f"{8 / res_s:.3f} fps, native C session {8 / native_s:.3f} fps "
           f"(this host)")
     return out
+
+
+def itx_timings(frames):
+    """Phase 3: the device composer's kernel on the records of the 1080p
+    intra and the 4K 10-bit key frames (CUDA events, back to back), its
+    plain version and its bound."""
+    out = {}
+    for name, r in frames.items():
+        ms = cuda_ms(r.run, 20)
+        plain = cuda_ms(r.plain, 1)
+        bound, by, nbytes = r.bound_ms()
+        out[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                     "bound_by": by}
+        print(f"{name} frame 0 device composer ({r.txs.shape[0]} transforms, "
+              f"{r.coeffs.numel()} coefficients, {r.bd}-bit): kernel "
+              f"{ms:.4f} ms, plain version {plain:.1f} ms, bound "
+              f"{bound * 1e3:.3f} us ({nbytes / 1e6:.2f} MB, {by})")
+    return out
+
+
+# the bench streams on which both composers are timed: name, path,
+# frames
+COMPOSE_STREAMS = [("1080p intra", INTRA_1080, 30),
+                   ("1080p inter", INTER_1080, 60), ("4K 10-bit", HBD_4K, 8)]
+
+
+def _median(values):
+    values = sorted(values)
+    return values[len(values) // 2]
+
+
+def compose_stages():
+    """Phase 3: on the three bench streams, with the host C composer and
+    with the device composer: the median stages "prepare", "compose" and
+    "upload" and the frame's total (ms, host clock, the device
+    synchronised at each stage's end) over the inter frames (all frames
+    of the intra stream) and on the key frame; the bytes of the residual
+    uploaded a frame (int16 planes, or records and coefficients); and
+    the port's fps in each mode beside the native C session's."""
+    for name, path, n in COMPOSE_STREAMS:
+        fps = {}
+        for host in (True, False):
+            mode = "host C composer" if host else "device composer"
+            sizes, upload = [], IntraRecon.upload
+
+            def spy(self, fields, resid, masks, schedule):
+                sizes.append(sum(a.nbytes for a in resid))
+                return upload(self, fields, resid, masks, schedule)
+
+            IntraRecon.upload = spy
+            pipe.stage_log = []
+            try:
+                decode_hashes(lambda: easyav1_tpu_torch.EasyAV1(
+                    path, device="cuda", host_residual=host))
+                log = list(pipe.stage_log)
+            finally:
+                pipe.stage_log = None
+                IntraRecon.upload = upload
+            check(len(log) == len(sizes) == n,
+                  f"{name} {mode}: {len(log)} frames timed")
+            rest = [d for d in log if "mc" in d] or log
+            med = {k: _median(d.get(k, 0.0) for d in rest) * 1e3
+                   for k in ("prepare", "compose", "upload")}
+            total = _median(sum(d.values()) for d in rest) * 1e3
+            print(f"{name} {mode}: median over {len(rest)} frames (ms): "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
+                  + f", frame total {total:.3f}; residual upload "
+                  f"{_median(sizes) / 1e6:.3f} MB a frame; key frame: "
+                  + ", ".join(f"{k} {log[0].get(k, 0.0) * 1e3:.3f}"
+                              for k in ("prepare", "compose", "upload"))
+                  + f", residual upload {sizes[0] / 1e6:.3f} MB")
+            _, wall = decode_hashes(lambda: easyav1_tpu_torch.EasyAV1(
+                path, device="cuda", host_residual=host))
+            fps[mode] = n / wall
+        _, wall = decode_hashes(lambda: native_session(path))
+        print(f"{name} {n} frames: port with the host C composer "
+              f"{fps['host C composer']:.3f} fps, with the device composer "
+              f"{fps['device composer']:.3f} fps, native C session "
+              f"{n / wall:.3f} fps (this host)")
 
 
 def kernel_entry(name, source, replaces, launches, err, t):
@@ -1341,23 +1641,33 @@ def main():
     err_frame16, err_strip16, cap16 = check_inter_hbd(dev)
     err_hbd = max(err_hbd, err_strip16)
     err_hash = check_hash(dev)
+    err_itx, err_itx16, itx_frames = check_itx(dev)
     stage_inputs = check_torch_stages(dev)
     # the main path: the 8-bit streams, then the 10- and 12-bit ones (the
     # kernels' uint16 instantiations); each stream's counts are set to 0
     # just before it and read just after
     launches = main_path(STREAMS)
-    check(all(v > 0 for v in launches.values()),
+    check(all(v > 0 for k, v in launches.items() if k != "itx_compose"),
           f"a kernel never ran on the 8-bit streams: {launches}")
     launches16 = main_path(HBD_STREAMS)
-    check(all(v > 0 for v in launches16.values()),
+    check(all(v > 0 for k, v in launches16.items() if k != "itx_compose"),
           f"a kernel never ran on the 10- and 12-bit streams: {launches16}")
     print(f"main path launches: 8-bit streams {launches}, 10- and 12-bit "
           f"streams {launches16}")
+    # the main path with the device residual composer, its own counts
+    composer = main_path(COMPOSER_STREAMS, host_residual=False)
+    composer16 = main_path(COMPOSER_STREAMS_HBD, host_residual=False)
+    check(composer["itx_compose"] > 0 and composer16["itx_compose"] > 0,
+          f"the device composer never ran: {composer}, {composer16}")
+    print(f"main path launches with the device composer: 8-bit streams "
+          f"{composer}, 10- and 12-bit streams {composer16}")
     t = timings(frames, dev)
     ti = inter_timings(caps, prog, dev)
     th = hash_timings(dev)
     stage_timings(stage_inputs, dev)
     t16 = hbd_timings(hbd_key, cap16, prog16, dev)
+    titx = itx_timings(itx_frames)
+    compose_stages()
     strip = dict(t["1080p"], ms=t["1080p"]["wavefront_ms"],
                  plain_ms=t["plain_ms"])
     mc = dict(ti["1080p"], plain_ms=ti["mc_plain_ms"])
@@ -1380,7 +1690,12 @@ def main():
                      launches16["obmc"], err_obmc16, t16["obmc"]),
         kernel_entry("frame_hash_u16", "frame_hash.cu", "resident.py:31",
                      launches16["frame_hash"], err_hash["uint16"],
-                     t16["hash"])]}))
+                     t16["hash"]),
+        kernel_entry("itx_compose", "itx.cu", "itx_jax.py:31",
+                     composer["itx_compose"], err_itx, titx["1080p"]),
+        kernel_entry("itx_compose_hbd", "itx.cu", "itx_jax.py:31",
+                     composer16["itx_compose"], err_itx16,
+                     titx["4K 10-bit"])]}))
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.split(".")[0] == "easyav1_tpu")
     check(not leaked, f"imported {leaked}")

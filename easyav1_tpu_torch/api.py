@@ -9,9 +9,12 @@ video track: "cuda" runs the port's CUDA kernels and raises without a
 card, "cpu" runs their plain torch versions, and None decodes every
 frame on the native C path.  With `resident=True` the frames of a device
 session stay on the device (`frame.data.device_planes`) until a consumer
-indexes `frame.data`.  `native_session` is that C path, the
-yardstick the port is held to, and `frame_hash` the frame hash both are
-compared by.
+indexes `frame.data`.  `host_residual` chooses the residual composer of
+a device session: the host C composer (True, the default) or the
+device's (False); None reads the reference's setting,
+`EASYAV1_HOST_RESID=0` for the device's (`host_residual_default`).
+`native_session` is that C path, the yardstick the port is held to, and
+`frame_hash` the frame hash both are compared by.
 
 Threading model parity (easyav1.c:2271-2333, 2805-2853): a playback
 thread paces decode against the wall clock; a video prefetch thread
@@ -62,11 +65,19 @@ class VideoBackend:
 
 
 def _make_video_backend(track: W.TrackInfo, device, threads: int = 0,
-                        resident: bool = False):
+                        resident: bool = False, host_residual: bool = True):
     if track.codec_id == W.CODEC_AV1:
         from easyav1_tpu_torch.video.av1.backend import AV1Backend
-        return AV1Backend(track, device, threads=threads, resident=resident)
+        return AV1Backend(track, device, threads=threads, resident=resident,
+                          host_residual=host_residual)
     return None
+
+
+def host_residual_default() -> bool:
+    """The reference's setting of the residual composer: the host C
+    composer unless `EASYAV1_HOST_RESID` is "0" (`jax_exec.py:395`).
+    The one place the port reads it."""
+    return os.environ.get("EASYAV1_HOST_RESID", "1") != "0"
 
 
 def resolve_device(device) -> Optional[torch.device]:
@@ -96,8 +107,13 @@ class EasyAV1:
 
     def __init__(self, source, settings: Optional[EasyAV1Settings] = None,
                  close_handle_on_destroy: Optional[bool] = None,
-                 device="cuda", resident: bool = False):
+                 device="cuda", resident: bool = False,
+                 host_residual: Optional[bool] = None):
         self.device = resolve_device(device)
+        # the residual planes of a device session: the host C composer,
+        # or the device composer (csrc/itx.cu)
+        self.host_residual = (host_residual_default() if host_residual is None
+                              else bool(host_residual))
         # frames stay on the device: `frame.data` downloads a frame's
         # planes when first indexed, `frame.data.device_planes` are the
         # tensors, uint8 at 8 bits and uint16 above, as `frame.data`'s
@@ -190,7 +206,7 @@ class EasyAV1:
             track = videos[s.video_track]
             backend = _make_video_backend(track, self.device,
                                           self.settings.video_threads,
-                                          self.resident)
+                                          self.resident, self.host_residual)
             if backend is None:
                 self.log.warning(
                     f"unsupported video codec {track.codec_id!r}; "

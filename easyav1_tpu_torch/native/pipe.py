@@ -52,8 +52,11 @@ def _count(fallback: bool) -> None:
 
 # When a list, each frame the pipe covers appends {stage: wall seconds}
 # (the device synchronised at every stage's end): "entropy", "plan",
-# "prepare", "upload", "mc", "intra", "lf_cdef", "sr", "lr", "tail",
-# "grain" (the last four only where the frame has them).  None: off.
+# "prepare", "compose", "upload", "mc", "intra", "lf_cdef", "sr", "lr",
+# "tail", "grain" (the last four only where the frame has them).
+# "compose" is the residual composer: the host C composer inside the
+# host prepare, or the device composer's kernel after the upload.
+# None: off.
 stage_log: Optional[list] = None
 
 
@@ -175,31 +178,43 @@ def export_units(lib, hdr, out, rp) -> Optional[np.ndarray]:
     return units[:n_out.value] if rc == 0 else None
 
 
-def intra_inputs(lib, seq, hdr, out, bufs, rp, device) -> Optional[dict]:
+def intra_inputs(lib, seq, hdr, out, bufs, rp, device, clock=None,
+                 host_residual=True) -> Optional[dict]:
     """The device inputs of an intra frame, or None when the executor
     declines it: {"recon": IntraRecon, "fields", "resid": per-plane
     tensors on `device`, "schedule": the SB schedule there, "maps":
     postfilter_frame's (grids_for, skip grid, CDEF index grid), "units":
-    the pred-unit count}."""
+    the pred-unit count, "records": the uploaded (txs, coeffs) the
+    device composer read, or None with `host_residual`}."""
+    clock = clock or _Stages()
     units = export_units(lib, hdr, out, rp)
     if units is None:
         return None
     ir = IntraRecon(hdr.mi_rows, hdr.mi_cols, seq.color.subsampling_x,
                     seq.color.subsampling_y, seq.color.bitdepth,
                     seq.color.num_planes,
-                    128 if seq.use_128x128_superblock else 64, device)
+                    128 if seq.use_128x128_superblock else 64, device,
+                    host_residual)
     prep = ir.prepare(units, bufs["txs"][:out.n_txs],
                       bufs["coeffs"][:out.coeffs_used],
                       literals=nat._export_literals(lib, rp, out),
-                      intrabc=bool(getattr(hdr, "allow_intrabc", False)))
+                      intrabc=bool(getattr(hdr, "allow_intrabc", False)),
+                      clock=clock)
+    clock.mark("prepare")
     if prep is None:
         return None
-    fields, resid, _masks, schedule = ir.upload(*prep)
+    fields, records, _masks, schedule = ir.upload(*prep)
+    clock.mark("upload", device)
+    resid = ir.compose(records)
+    clock.mark("compose", device)
+    if resid is None:
+        return None
     return {"recon": ir, "fields": fields, "resid": resid,
             "schedule": schedule,
             "maps": (nat._grids_exporter(lib, rp, out),
                      bufs["grids"]["skip"], bufs["cdef"]),
-            "units": units.shape[0]}
+            "units": units.shape[0],
+            "records": records if isinstance(records, tuple) else None}
 
 
 def _finish(dev, seq, hdr, out, bufs, maps, clock):
@@ -260,14 +275,15 @@ def _tail(dev, seq, hdr, resident, grain, clock):
     return planes, refs
 
 
-def _intra_frame(lib, seq, hdr, out, bufs, rp, device, clock):
+def _intra_frame(lib, seq, hdr, out, bufs, rp, device, clock,
+                 host_residual):
     """Device recon and postfilters of an intra frame.  Returns the
     post-filtered device planes, or None when the executor declines the
     frame."""
-    inp = intra_inputs(lib, seq, hdr, out, bufs, rp, device)
+    inp = intra_inputs(lib, seq, hdr, out, bufs, rp, device, clock,
+                       host_residual)
     if inp is None:
         return None
-    clock.mark("upload", device)
     dev = inp["recon"].launch(inp["fields"], inp["resid"], inp["schedule"])
     clock.mark("intra", device)
     return _finish(dev, seq, hdr, out, bufs, inp["maps"], clock)
@@ -284,7 +300,8 @@ class _HostLuma:
         return [self.refs[slot][0][0].host()]
 
 
-def _inter_frame(lib, seq, hdr, out, bufs, rp, refs, device, clock):
+def _inter_frame(lib, seq, hdr, out, bufs, rp, refs, device, clock,
+                 host_residual):
     """Device MC + OBMC + intra units and postfilters of an inter frame,
     the counterpart of `_device_frame_inter`.  refs: per-slot triples of
     (DevRef, lw, lh).  Returns as `_intra_frame`, or None when the
@@ -304,10 +321,12 @@ def _inter_frame(lib, seq, hdr, out, bufs, rp, refs, device, clock):
     ir = InterRecon(hdr.mi_rows, hdr.mi_cols, seq.color.subsampling_x,
                     seq.color.subsampling_y, seq.color.bitdepth,
                     seq.color.num_planes,
-                    128 if seq.use_128x128_superblock else 64, device)
+                    128 if seq.use_128x128_superblock else 64, device,
+                    host_residual)
     prep = ir.prepare(units, bufs["txs"][:out.n_txs],
                       bufs["coeffs"][:out.coeffs_used],
-                      literals=nat._export_literals(lib, rp, out))
+                      literals=nat._export_literals(lib, rp, out),
+                      clock=clock)
     clock.mark("prepare")
     if prep is None:
         return None
@@ -315,6 +334,10 @@ def _inter_frame(lib, seq, hdr, out, bufs, rp, refs, device, clock):
     dev_refs = [[refs[s][p][0].tensor(device) for s in plan["slots"]]
                 for p in range(seq.color.num_planes)]
     clock.mark("upload", device)
+    resid = ir.compose(resid)
+    clock.mark("compose", device)
+    if resid is None:
+        return None
     dev = ir.motion(resid, plan, dev_refs)
     clock.mark("mc", device)
     dev = ir.intra(dev, fields, resid, masks, schedule)
@@ -324,10 +347,11 @@ def _inter_frame(lib, seq, hdr, out, bufs, rp, refs, device, clock):
                     bufs["cdef"]), clock)
 
 
-def first_frame_inputs(path: str, device: torch.device) -> Optional[dict]:
+def first_frame_inputs(path: str, device: torch.device,
+                       host_residual: bool = True) -> Optional[dict]:
     """`intra_inputs` of a WebM stream's first frame, entropy-decoded in
-    C, plus its "hdr" and "seq"; the postfilter maps are snapshots, so
-    they stay valid across later decodes."""
+    C, plus its "hdr" and "seq"; the postfilter maps and the records are
+    snapshots, so they stay valid across later decodes."""
     # the backend imports this module
     from easyav1_tpu_torch.video.av1.backend import AV1Backend
 
@@ -353,12 +377,15 @@ def first_frame_inputs(path: str, device: torch.device) -> Optional[dict]:
     lib = nat._load()
     out, bufs, _blob, _fp = nat._run_tiles(lib, seq, hdr, tiles)
     inp = intra_inputs(lib, seq, hdr, out, bufs, nat._build_rp(seq, hdr),
-                       device)
+                       device, host_residual=host_residual)
     if inp is None:
         return None
     grids_for, skip, cdef = inp["maps"]
     grids = {p: grids_for(p, d) for p, d in enumerate(inp["recon"].dims)}
     inp["maps"] = (lambda p, shape: grids[p], skip.copy(), cdef.copy())
+    if inp["records"] is not None:
+        # on the CPU the uploaded records share the decoder's buffers
+        inp["records"] = tuple(t.clone() for t in inp["records"])
     return inp | {"hdr": hdr, "seq": seq}
 
 
@@ -411,8 +438,8 @@ def _c_refs(refs):
 
 def decode_and_recon(seq, hdr, tiles: List[bytes], device: torch.device,
                      cdf_in=None, want_cdf=False, tpl=None, refs=None,
-                     threads=0, resident=False, grain=None
-                     ) -> Optional[Tuple]:
+                     threads=0, resident=False, grain=None,
+                     host_residual=True) -> Optional[Tuple]:
     """Entropy decode in C, then the port's device recon (or the C recon
     for a declined frame).  Returns (display planes, cdf blob or None,
     mv grids or None, ref triples), or None when the C entropy decoder
@@ -420,7 +447,9 @@ def decode_and_recon(seq, hdr, tiles: List[bytes], device: torch.device,
     logical h).  The display planes of a frame the device made are a
     `LazyPlanes`, with film grain already applied by `grain` (see
     `_tail`); those of a declined frame are numpy planes without
-    grain.  resident: download no plane until a consumer indexes it."""
+    grain.  resident: download no plane until a consumer indexes it.
+    host_residual: the host C composer makes the residual planes (the
+    default), or the device composer (`itx_torch.compose_residual`)."""
     lib = nat._load()
     clock = _Stages()
     if not hdr.frame_is_intra and (
@@ -439,10 +468,11 @@ def decode_and_recon(seq, hdr, tiles: List[bytes], device: torch.device,
         mv_grids = (bufs["ref0"], bufs["ref1"], bufs["mvs"])
     got = None
     if covers(seq, hdr):
-        got = (_intra_frame(lib, seq, hdr, out, bufs, rp, device, clock)
+        got = (_intra_frame(lib, seq, hdr, out, bufs, rp, device, clock,
+                            host_residual)
                if hdr.frame_is_intra else
                _inter_frame(lib, seq, hdr, out, bufs, rp, refs, device,
-                            clock))
+                            clock, host_residual))
         if got is not None:
             got = _tail(got, seq, hdr, resident, grain, clock)
             clock.close()

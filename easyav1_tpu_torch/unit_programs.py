@@ -357,3 +357,88 @@ def random_mc_program(seed: int, width: int = 100, height: int = 76,
     lim = 64 << (bd - 8)
     resid = [rng.integers(-lim, lim + 1, d).astype(np.int16) for d in dims]
     return {"plan": plan, "refs": refs, "resid": resid, "dims": dims}
+
+
+def _tx_region(x: int, y: int, w: int, h: int, rng, pick):
+    """Transforms tiling the region [x, x + w) x [y, y + h) (w, h powers
+    of two from 4 to 64): a (size, type) `pick` gives, or a random one
+    that fits, or the four quadrants of a square, each alike."""
+    from easyav1_tpu_torch.video.av1 import tables as T
+    from easyav1_tpu_torch.video.av1.recon.itx_torch import legal
+    if pick is None and w == h and w > 4 and rng.random() < 0.4:
+        for dy in (0, h // 2):
+            for dx in (0, w // 2):
+                yield from _tx_region(x + dx, y + dy, w // 2, h // 2, rng,
+                                      None)
+        return
+    if pick is None:
+        sizes = [s for s in range(19)
+                 if T.TX_WIDTH[s] <= w and T.TX_HEIGHT[s] <= h]
+        s = sizes[int(rng.integers(len(sizes)))]
+        types = [t for t in range(16) if legal(s, t)]
+        pick = (s, types[int(rng.integers(len(types)))])
+    s, t = pick
+    for ty in range(y, y + h, T.TX_HEIGHT[s]):
+        for tx in range(x, x + w, T.TX_WIDTH[s]):
+            yield s, t, tx, ty
+
+
+def _eob_pack(c: np.ndarray, aw: int) -> int:
+    """The decoder's rec[5] of a coefficient block (dense, aw wide): an
+    eob (1 for a DC-only block, else the block's size) packed with the
+    nonzero rows and columns (`av1_tile.c`), which the host C composer
+    reads to skip zero rows and DC-only blocks."""
+    nz = np.flatnonzero(c)
+    eob = 1 if nz.size and nz.max() == 0 else c.size
+    maxr = int((nz // aw).max()) if nz.size else 0
+    maxc = int((nz % aw).max()) if nz.size else 0
+    return eob | ((maxr + 1) << 12) | ((maxc + 1) << 18)
+
+
+def random_tx_program(seed: int, dims, bd: int = 8,
+                      tile_pairs: bool = True) -> Dict:
+    """Seeded transform records and coefficients over planes of `dims`
+    ((h, w) each), in the C decoder's export layout: {"txs": [n, 8]
+    int32 (plane, x, y, tx_size, tx_type, packed eob, coefficient
+    offset, 0),
+    "coeffs": int32, "dims", "bd"}.  Each plane is cut into 64x64 blocks
+    from its top left; the first blocks over the planes take each legal
+    (size, type) pair in turn, tiled over the block (or, without
+    `tile_pairs`, one transform at its top left), the rest random
+    sizes, types and quadtree splits.  Blocks overhang the right and
+    bottom edges, so transforms there are cropped; a transform that
+    would start outside its plane is left out.  Coefficients lie in
+    +-2^(bd+7): dense, sparse, DC-only or at the extremes."""
+    from easyav1_tpu_torch.video.av1 import tables as T
+    from easyav1_tpu_torch.video.av1.recon.itx_torch import legal_pairs
+    rng = np.random.default_rng(seed)
+    cases = legal_pairs()
+    lim = 1 << (bd + 7)
+    recs, coeffs, used, k = [], [], 0, int(rng.integers(len(cases)))
+    for p, (ph, pw) in enumerate(dims):
+        for by in range(0, ph, 64):
+            for bx in range(0, pw, 64):
+                pick = cases[k % len(cases)] if k < 2 * len(cases) else None
+                k += 1
+                for s, t, x, y in _tx_region(bx, by, 64, 64, rng, pick):
+                    if x >= pw or y >= ph or (
+                            pick and not tile_pairs and (x, y) != (bx, by)):
+                        continue
+                    adj = T.ADJUSTED_TX_SIZE[s]
+                    n = T.TX_WIDTH[adj] * T.TX_HEIGHT[adj]
+                    kind = int(rng.integers(5))
+                    c = rng.integers(-lim, lim, n)
+                    if kind == 1:
+                        c[rng.random(n) < 0.9] = 0
+                    elif kind == 2:
+                        c[1:] = 0
+                    elif kind == 3:
+                        c = np.where(rng.random(n) < 0.5, -lim, lim - 1)
+                    recs.append([p, x, y, s, t, _eob_pack(c, T.TX_WIDTH[adj]),
+                                 used, 0])
+                    coeffs.append(c)
+                    used += n
+    return {"txs": np.asarray(recs, np.int32).reshape(-1, 8),
+            "coeffs": (np.concatenate(coeffs) if coeffs
+                       else np.zeros(0)).astype(np.int32),
+            "dims": [tuple(d) for d in dims], "bd": bd}

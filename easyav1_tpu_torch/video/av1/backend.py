@@ -10,7 +10,8 @@ The reference's `AV1Backend` with one of two routes for every frame:
   reconstructs the frames it covers on that device, film grain
   included, and declines the rest to the C recon (their grain runs in
   host C).  With `resident` the frames' planes stay on the device until
-  a consumer indexes them.
+  a consumer indexes them; with `host_residual` False the device
+  composes the residual planes in place of the host C composer.
 
 Where the reference falls back to its pure-Python decoder when the C
 decoder declines a frame (a tile-count mismatch or a corrupt tile), the
@@ -51,12 +52,14 @@ class AV1DecodeError(Exception):
 
 class AV1Backend:
     def __init__(self, track: TrackInfo, device=None, threads: int = 0,
-                 resident: bool = False):
+                 resident: bool = False, host_residual: bool = True):
         self.track = track
         # None: the C recon; a torch.device: the port's pipe
         self.device = device
         # the pipe's frames stay on the device until they are indexed
         self.resident = resident
+        # the residual planes: the host C composer, or the device's
+        self.host_residual = host_residual
         # (grain parameters, their FilmGrain on the device), kept across
         # frames whose parameters do not change
         self._dev_fg = None
@@ -176,7 +179,8 @@ class AV1Backend:
                 seq, hdr, tiles, self.device, cdf_in=init_blob,
                 want_cdf=want_cdf, tpl=tpl, refs=self._ref_u16,
                 threads=self.threads, resident=self.resident,
-                grain=self._film_grain_device)
+                grain=self._film_grain_device,
+                host_residual=self.host_residual)
         if res is None:
             raise AV1DecodeError("the C decoder declined the frame "
                                  "(tile count or tile data)")

@@ -2,7 +2,8 @@
 `mc_jax.DeviceInterRecon` (`mc_jax.py:873-1181`).
 
 The host composes the residual (`compose_residual_host`, palette folded
-in by `apply_literals`), lays out the pred units of the frame's intra and
+in by `apply_literals`; or, with `host_residual=False`, the device does,
+as `IntraRecon`), lays out the pred units of the frame's intra and
 interintra blocks (`preprocess_units`), builds the interintra mask
 stacks (`ii_masks`) and the superblock schedule.  The device then runs,
 in place on int32 planes that start at zero: MC of the single, pair and
@@ -131,5 +132,8 @@ class InterRecon(IntraRecon):
         if prep is None:
             return None
         fields, resid, masks, schedule = self.upload(*prep)
+        resid = self.compose(resid)
+        if resid is None:
+            return None
         planes = self.motion(resid, plan, refs)
         return self.intra(planes, fields, resid, masks, schedule)

@@ -106,17 +106,19 @@ def hash_value(h) -> int:
 
 
 def decode_resident(path: str, device="cuda",
-                    max_frames: Optional[int] = None):
+                    max_frames: Optional[int] = None,
+                    host_residual: Optional[bool] = None):
     """Decode the video track of the WebM file `path` on `device` in
     resident mode (the first `max_frames` packets of it, if given): no
     plane is downloaded, each frame is hashed where it lies and only the
-    hashes come back.
+    hashes come back.  host_residual: as `EasyAV1`'s.
 
     Returns (n_frames, wall_seconds, hashes, frames): the wall time
     covers decode and hash; `frames` are the frame objects, whose `data`
     downloads a frame's planes when first indexed.  A frame the C recon
     made (a fallback) is hashed on the host."""
-    from easyav1_tpu_torch.api import frame_hash, resolve_device
+    from easyav1_tpu_torch.api import (frame_hash, host_residual_default,
+                                       resolve_device)
     from easyav1_tpu_torch.container.webm import TrackType, WebMDemuxer
     from easyav1_tpu_torch.video.av1.backend import AV1Backend
 
@@ -131,7 +133,10 @@ def decode_resident(path: str, device="cuda",
             pkts.extend(p.frames)
     if max_frames is not None:
         pkts = pkts[:max_frames]
-    be = AV1Backend(vt, device, resident=True)
+    be = AV1Backend(vt, device, resident=True,
+                    host_residual=(host_residual_default()
+                                   if host_residual is None
+                                   else bool(host_residual)))
     t0 = time.perf_counter()
     hashes, frames = [], []
     for pk in pkts:

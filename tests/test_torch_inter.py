@@ -569,9 +569,10 @@ def test_stage_log_times_every_stage(monkeypatch):
     _port(SMOKE_STREAM)
     log = pipe.stage_log
     assert len(log) == easyav1_tpu_torch.stats["frames"] == 8
-    assert set(log[0]) == {"entropy", "upload", "intra", "lf_cdef", "tail"}
-    assert all(set(d) == {"entropy", "plan", "prepare", "upload", "mc",
-                          "intra", "lf_cdef", "tail"} for d in log[1:])
+    assert set(log[0]) == {"entropy", "prepare", "compose", "upload",
+                           "intra", "lf_cdef", "tail"}
+    assert all(set(d) == {"entropy", "plan", "prepare", "compose", "upload",
+                          "mc", "intra", "lf_cdef", "tail"} for d in log[1:])
     assert all(v >= 0 for d in log for v in d.values())
 
 
@@ -592,10 +593,10 @@ def test_inter_recon_vs_device_inter_recon(monkeypatch):
     done = []
     orig = pipe._inter_frame
 
-    def hook(lib, seq, hdr, out, bufs, rp, refs, device, clock):
+    def hook(lib, seq, hdr, out, bufs, rp, refs, device, clock, *rest):
         if not done:
             done.append(_compare_recons(lib, seq, hdr, out, bufs, rp, refs))
-        return orig(lib, seq, hdr, out, bufs, rp, refs, device, clock)
+        return orig(lib, seq, hdr, out, bufs, rp, refs, device, clock, *rest)
 
     monkeypatch.setattr(pipe, "_inter_frame", hook)
     _port(path)

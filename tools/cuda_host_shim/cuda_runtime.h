@@ -1,6 +1,7 @@
-// A host stand-in for <cuda_runtime.h>, for tools/torch_mc_host_run.py:
-// enough of CUDA C++ to compile easyav1_tpu_torch/csrc/inter_mc.cu with
-// g++ and run its kernels on the CPU.  A launch (MC_LAUNCH) runs the
+// A host stand-in for <cuda_runtime.h>, for tools/torch_mc_host_run.py
+// and tools/torch_itx_host_run.py: enough of CUDA C++ to compile
+// easyav1_tpu_torch/csrc/inter_mc.cu and csrc/itx.cu with g++ and run
+// their kernels on the CPU.  A launch (MC_LAUNCH, ITX_LAUNCH) runs the
 // grid's CTAs one after another, each thread of a CTA as an OS thread;
 // __syncthreads and __syncwarp are pthread barriers, so a warp whose
 // lanes do not all reach a barrier hangs here as it would misbehave on
@@ -22,6 +23,7 @@
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __shared__ static
+#define __constant__
 #define __align__(n) alignas(n)
 using std::max;
 using std::min;
@@ -59,3 +61,4 @@ template <class F> void host_launch(int grid, int threads, F fn) {
 }
 #define MC_LAUNCH(kernel, grid, threads, stream, ...) \
   host_launch(grid, threads, [=] { kernel(__VA_ARGS__); })
+#define ITX_LAUNCH(...) MC_LAUNCH(__VA_ARGS__)
