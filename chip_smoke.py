@@ -88,7 +88,28 @@ reports it prints).  Then:
    1080p intra, 1080p inter and 4K 10-bit streams, with each composer,
    the stages "prepare", "pack", "compose" and "upload", the residual's
    upload bytes a frame and the port's fps, beside the native C
-   session's.
+   session's;
+4. runs the off-path modules: the multi-stream batch
+   (`parallel/multistream_av1.py`) on 3 batches of 8 1080p key frames,
+   half of tests/data/bench/bench_av1_intra_lf_1920x1080_8.webm
+   (deblocking on, CDEF damping 6) and half of the 1080p intra stream
+   (deblocking off, damping 4), no frame twice in a batch, every frame
+   through `batched_postfilter_real` (one LF + CDEF pass over a stream
+   axis) and `batched_postfilter_loop` (a pass a frame) hash-equal to
+   the native C session's, and `postfilter_torch.MultiStreamPostfilter`
+   at 8 streams of 1080p luma bit-equal to the same step on the CPU;
+   Vorbis synthesis (`audio/vorbis/device.py`) fed a packet at a time
+   on tests/data/bench/bench_vorbis_stereo_48k_30s.webm and
+   tests/data/smoke/vorbis_clicks_2s.webm, within 5e-6 of the host
+   decoder's PCM, chunk 7 and chunk 64 bit-equal, and
+   `parallel/mesh.py::MultiStreamVorbisSynth` at 8 streams within 5e-6
+   (of its peak) of its CPU run; and times them: the batch against the
+   loop (host clock, and the device pass alone by CUDA events) beside
+   the byte bound, BASELINE config 5 (8 interleaved resident sessions of
+   the 1080p inter stream, 3 frames each, device hashes checked), the
+   Vorbis host pipeline and device synth in times realtime, the synth on
+   one chunk of 512 blocks and `MultiStreamVorbisSynth.step` beside
+   their float32 operation bounds and one `torch.matmul`.
 
 The smoke imports only torch and `easyav1_tpu_torch`, and checks that
 neither jax nor easyav1_tpu was imported.  Every phase raises on
@@ -110,15 +131,21 @@ import torch
 import easyav1_tpu_torch
 from easyav1_tpu_torch import _build, native
 from easyav1_tpu_torch.api import frame_hash, native_session
+from easyav1_tpu_torch.audio.vorbis import VorbisDecoder
+from easyav1_tpu_torch.audio.vorbis.device import VorbisDeviceSynth
+from easyav1_tpu_torch.container import TrackType, WebMDemuxer
 from easyav1_tpu_torch.native import pipe
 from easyav1_tpu_torch.native.pipe import first_frame_inputs
+from easyav1_tpu_torch.parallel import multistream_av1
+from easyav1_tpu_torch.parallel.mesh import MultiStreamVorbisSynth
 from easyav1_tpu_torch.unit_programs import (
     program_frame, random_ibc_program, random_interintra_program,
     random_mc_program, random_program, random_tx_program, shaped_tx_program)
 from easyav1_tpu_torch.video.av1 import itx_ref
 from easyav1_tpu_torch.video.av1 import tables as T
 from easyav1_tpu_torch.video.av1.recon import (fg_torch, inter_mc, intra_strip,
-                                               itx_torch, lr_torch, resident,
+                                               itx_torch, lr_torch,
+                                               postfilter_torch, resident,
                                                sr_torch)
 from easyav1_tpu_torch.video.av1.recon.intra_exec import IntraRecon
 from easyav1_tpu_torch.video.av1.headers import FilmGrainParams
@@ -131,7 +158,8 @@ from easyav1_tpu_torch.video.av1.recon.records import (
     F_H, F_RES, F_W, coded_box, compose_residual_host, pack_coeff_rows,
     preprocess_units)
 from easyav1_tpu_torch.video.av1.recon.postfilter import (postfilter_apply,
-                                                          postfilter_maps)
+                                                          postfilter_maps,
+                                                          upload_maps)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 BENCH = os.path.join(REPO, "tests", "data", "bench")
@@ -142,6 +170,11 @@ SMOKE = os.path.join(REPO, "tests", "data", "smoke")
 MODES = os.path.join(SMOKE, "inter_modes_96x96.webm")
 LR_GRAIN_1080 = os.path.join(BENCH, "bench_av1_lr_grain_1920x1080_8.webm")
 HBD_4K = os.path.join(BENCH, "bench_av1_10bit_3840x2160_8.webm")
+# 8 key frames, deblocking and CDEF on (the intra stream above has
+# deblocking level 0)
+LF_1080 = os.path.join(BENCH, "bench_av1_intra_lf_1920x1080_8.webm")
+VORBIS_30S = os.path.join(BENCH, "bench_vorbis_stereo_48k_30s.webm")
+VORBIS_CLICKS = os.path.join(SMOKE, "vorbis_clicks_2s.webm")
 SEEDS = [301, 304, 305, 317, 310, 311, 312, 313]
 SCAN_SEEDS = [301, 303, 302, 310, 311, 319]
 # (seed, width, height): 1080p, and a size whose reference pitches are
@@ -180,6 +213,13 @@ ITX_SHAPED = [("DC-heavy", 47, [(1080, 1920), (540, 960), (540, 960)], 8,
                (0, 1), 0.0)]
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 INT32_OPS_PER_S = 33.5e12   # half the 67 TFLOP/s of float32 outside tensor cores
+FP32_OPS_PER_S = 67e12      # float32 outside the tensor cores (TF32 is off)
+# the multi-stream phase: slots a batch (BASELINE config 5's 8 streams)
+# and batches
+MS_SLOTS = 8
+MS_BATCHES = 3
+# Vorbis PCM against the host decoder (tests/test_vorbis.py's TOL)
+VORBIS_TOL = 5e-6
 
 
 def check(cond, what):
@@ -1145,8 +1185,11 @@ def timings(frames, dev):
         maps()
     maps_ms = (time.perf_counter() - t0) * 100
     apply_ms = cuda_ms(lambda: postfilter_apply(planes, m), 10)
+    nbytes = 2 * sum(p.numel() * 4 for p in planes) + map_bytes(m)
     print(f"1080p frame 0 LF + CDEF: host maps + upload {maps_ms:.3f} ms "
-          f"(host clock), device filters {apply_ms:.3f} ms (CUDA events)")
+          f"(host clock), device filters {apply_ms:.3f} ms (CUDA events), "
+          f"byte bound {nbytes / HBM_BYTES_PER_S * 1e6:.3f} us "
+          f"({nbytes / 1e6:.2f} MB: int32 planes in and out, maps)")
     _, port_s = decode_hashes(
         lambda: easyav1_tpu_torch.EasyAV1(INTRA_1080, device="cuda"))
     _, native_s = decode_hashes(lambda: native_session(INTRA_1080))
@@ -1218,8 +1261,8 @@ class Footprint:
                    for shape, size, parts in self.rects.values())
 
 
-def _bound(nbytes, ops):
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+def _bound(nbytes, ops, ops_per_s=INT32_OPS_PER_S):
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return (max(by_bytes, by_ops) * 1e3,
             "bytes" if by_bytes >= by_ops else "operations")
 
@@ -1698,6 +1741,316 @@ def compose_stages():
               f"{n / wall:.3f} fps (this host)")
 
 
+# --------------------------------------------- the multi-stream batch
+
+def multistream_batches():
+    """MS_BATCHES batches of MS_SLOTS 1080p key frames, LF and CDEF not
+    yet applied: in each, half the slots hold frames of the deblocking
+    stream (deblocking on, CDEF damping 6) and half frames of the 1080p
+    intra stream (deblocking off, damping 4), no frame twice.  Returns a
+    list of [(stream path, frame index, frame)]."""
+    half = MS_SLOTS // 2
+    lf = multistream_av1.decode_frames_unfiltered_native(LF_1080, 8)
+    intra = multistream_av1.decode_frames_unfiltered_native(
+        INTRA_1080, half * MS_BATCHES)
+    batches = []
+    for k in range(MS_BATCHES):
+        slots = []
+        for j in range(half):
+            i = (half * k + j) % len(lf)
+            slots += [(LF_1080, i, lf[i]),
+                      (INTRA_1080, half * k + j, intra[half * k + j])]
+        batches.append(slots)
+    return batches
+
+
+def check_multistream(dev):
+    """The multi-stream phase: every slot of every batch through
+    `batched_postfilter_real` (one pass a batch, over a stream axis) and
+    `batched_postfilter_loop` (a pass a slot), each frame hash-equal to
+    the native C session's; `MultiStreamPostfilter` at 8 streams of 1080p
+    on the card bit-equal to the same step on the CPU."""
+    batches = multistream_batches()
+    n = 0
+    for b, batch in enumerate(batches):
+        frames = [f for _, _, f in batch]
+        outs = {"batched": multistream_av1.batched_postfilter_real(frames,
+                                                                   dev),
+                "loop": multistream_av1.batched_postfilter_loop(frames, dev)}
+        for s, (path, i, f) in enumerate(batch):
+            want = native_hashes(path)[i]
+            for how, out in outs.items():
+                got = frame_hash(multistream_av1.shown_planes(
+                    f, [o[s] for o in out]))
+                check(got == want, f"multi-stream batch {b} slot {s} "
+                      f"({os.path.basename(path)} frame {i}, {how}): hash "
+                      f"{got}, native {want}")
+                n += 1
+    print(f"multi-stream: {len(batches)} batches of {MS_SLOTS} 1080p key "
+          f"frames (deblocking on in half the slots, CDEF damping 6 and "
+          f"4), {n} frames hash-equal to the native C session, batched "
+          f"and slot by slot")
+    step = postfilter_torch.MultiStreamPostfilter(MS_SLOTS, 1080, 1920,
+                                                  device=dev)
+    inputs = step.example_inputs()
+    got = step.step(*inputs).cpu()
+    want = postfilter_torch.MultiStreamPostfilter(
+        MS_SLOTS, 1080, 1920, device="cpu").step(*inputs)
+    err = int((got - want).abs().max())
+    check(err == 0, f"MultiStreamPostfilter on the card: max_abs_err {err}")
+    print(f"MultiStreamPostfilter, {MS_SLOTS} streams of 1080x1920 luma: "
+          f"bit-equal to the CPU")
+    return batches
+
+
+def _wall_ms(fn, reps):
+    """Median wall time of fn, the device synchronised after each call."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return _median(times)
+
+
+def multistream_timings(batches, dev):
+    """Batch 0: wall ms of `batched_postfilter_real` against
+    `batched_postfilter_loop` (host maps, uploads and filters); the device
+    pass alone on uploaded inputs (CUDA events), one stacked pass against
+    a pass a slot; the byte bound of the stacked pass (planes in and out,
+    maps, at HBM_BYTES_PER_S); then BASELINE config 5 as
+    `bench.py::bench_multistream_device` measures it."""
+    frames = [f for _, _, f in batches[0]]
+    s = len(frames)
+    out = {"slots": s,
+           "batched_ms": _wall_ms(lambda: multistream_av1.
+                                  batched_postfilter_real(frames, dev), 5),
+           "loop_ms": _wall_ms(lambda: multistream_av1.
+                               batched_postfilter_loop(frames, dev), 5)}
+    planes, stacked = multistream_av1.batch_inputs(frames, dev)
+    single = [upload_maps(m, dev)
+              for m in multistream_av1.batch_maps(frames)[1]]
+    out["batched_device_ms"] = cuda_ms(lambda: postfilter_apply(planes,
+                                                                stacked), 5)
+    out["loop_device_ms"] = cuda_ms(lambda: [
+        postfilter_apply([p[k] for p in planes], single[k])
+        for k in range(s)], 5)
+    nbytes = 2 * sum(p.numel() * 4 for p in planes) + map_bytes(stacked)
+    out["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"multi-stream LF + CDEF, {s} 1080p key frames a batch: "
+          f"batched_postfilter_real {out['batched_ms']:.3f} ms a batch "
+          f"({out['batched_ms'] / s:.3f} a frame), batched_postfilter_loop "
+          f"{out['loop_ms']:.3f} ({out['loop_ms'] / s:.3f}) (host clock, "
+          f"synchronised, median of 5); the device pass on uploaded inputs "
+          f"{out['batched_device_ms']:.3f} ms stacked against "
+          f"{out['loop_device_ms']:.3f} slot by slot (CUDA events); byte "
+          f"bound {out['bound_ms']:.4f} ms ({nbytes / 1e6:.2f} MB)")
+    step = postfilter_torch.MultiStreamPostfilter(s, 1080, 1920, device=dev)
+    args = [torch.as_tensor(a).to(dev) for a in step.example_inputs()]
+    out["step_ms"] = cuda_ms(lambda: step.step(*args), 5)
+    nbytes = sum(a.numel() * 4 for a in args) + args[0].numel() * 4
+    out["step_bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"MultiStreamPostfilter.step, {s} streams of 1080x1920 luma: "
+          f"{out['step_ms']:.3f} ms (CUDA events), byte bound "
+          f"{out['step_bound_ms'] * 1e3:.3f} us ({nbytes / 1e6:.2f} MB)")
+    out |= config5_fps(dev)
+    return out
+
+
+def map_bytes(maps):
+    """Bytes of the deblocking and CDEF maps of `postfilter_maps` or
+    `stack_maps`, CDEF's constant tables left out."""
+    tensors = [t for m in maps["lf"] or () for t in m.values()] + [
+        t for k, t in (maps["cdef"] or {}).items()
+        if isinstance(t, torch.Tensor) and k != "tabs"]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def config5_fps(dev, streams=8, frames=3):
+    """BASELINE config 5 as `bench.py::bench_multistream_device` measures
+    it: `streams` resident sessions of the 1080p inter stream through the
+    port's backend, interleaved a packet at a time, `frames` frames each,
+    after a warm-up pass; every frame's device hash against the native C
+    session's."""
+    from easyav1_tpu_torch.container import TrackType, WebMDemuxer
+    from easyav1_tpu_torch.video.av1.backend import AV1Backend
+
+    dmx = WebMDemuxer(INTER_1080)
+    vt = dmx.tracks_of_type(TrackType.VIDEO)[0]
+    pkts = []
+    while len(pkts) < frames and (p := dmx.read_packet()) is not None:
+        if p.track == vt.number:
+            pkts.extend(p.frames)
+    pkts = pkts[:frames]
+
+    def run(n):
+        decs = [AV1Backend(vt, dev, resident=True) for _ in range(n)]
+        hashes = [[] for _ in range(n)]
+        t0 = time.perf_counter()
+        for pk in pkts:
+            for s, be in enumerate(decs):
+                for f in be.decode([pk], 0):
+                    hashes[s].append(resident.frame_hash_device(
+                        f.data.device_planes))
+        hashes = [[resident.hash_value(h) for h in hs] for hs in hashes]
+        return hashes, time.perf_counter() - t0
+
+    run(1)
+    easyav1_tpu_torch.stats.update(frames=0, fallbacks=0)
+    hashes, wall = run(streams)
+    want = native_hashes(INTER_1080)[:frames]
+    check(all(h == want for h in hashes)
+          and easyav1_tpu_torch.stats["fallbacks"] == 0,
+          f"config 5: hashes {hashes}, native {want}, stats "
+          f"{dict(easyav1_tpu_torch.stats)}")
+    fps = streams * frames / wall
+    print(f"config 5: {streams} interleaved resident sessions of the 1080p "
+          f"inter stream, {frames} frames each, {fps:.3f} fps in all "
+          f"({wall:.3f} s), every device hash equal to the native C session")
+    return {"config5_fps": fps, "config5_streams": streams,
+            "config5_frames": streams * frames}
+
+
+# ------------------------------------------------- Vorbis synthesis
+
+def vorbis_packets(path):
+    dmx = WebMDemuxer(path)
+    at = dmx.tracks_of_type(TrackType.AUDIO)[0]
+    pkts = []
+    while (p := dmx.read_packet()) is not None:
+        if p.track == at.number:
+            pkts.extend(p.frames)
+    return at.vorbis_headers(), pkts
+
+
+def vorbis_synth(dec, coupling, chunk, dev, band=True):
+    i = dec.info
+    return VorbisDeviceSynth(i.channels, i.blocksize0, i.blocksize1,
+                             tuple(coupling), chunk=chunk,
+                             band_limit=(dec.spectral_band_limits() if band
+                                         else (0, 0)), device=dev)
+
+
+def check_vorbis(dev):
+    """The Vorbis phase, on both committed streams: the host pipeline
+    (`decode_packet_host`), then the device synth fed a packet at a time
+    as `bench.py::bench_vorbis` feeds it (chunk 512, the band limit, a
+    warm-up first), within VORBIS_TOL of the host PCM, each timed on the
+    host clock; chunk 7 and chunk 64 bit-equal on the card; and
+    `MultiStreamVorbisSynth` at 8 streams on the card within VORBIS_TOL of
+    its CPU run (relative to the peak: its example spectra are standard
+    normal).  Returns the timings and the stereo stream's synth."""
+    out = {}
+    for name, path in (("stereo 30 s", VORBIS_30S),
+                       ("clicks 2 s", VORBIS_CLICKS)):
+        headers, pkts = vorbis_packets(path)
+        t0 = time.perf_counter()
+        dec = VorbisDecoder(headers)
+        host = np.concatenate([dec.decode_packet_host(p) for p in pkts])
+        t_host = time.perf_counter() - t0
+        secs = host.shape[0] / dec.info.sample_rate
+        dec = VorbisDecoder(headers)
+        warm = [b for b in (dec.decode_packet_symbols(p) for p in pkts[:8])
+                if b is not None]
+        synth = vorbis_synth(dec, warm[0].coupling, 512, dev)
+        synth.process(warm)
+        synth.reset()
+        dec = VorbisDecoder(headers)
+        t0 = time.perf_counter()
+        synth.begin()
+        blocks = []
+        for p in pkts:
+            b = dec.decode_packet_symbols(p)
+            if b is not None:
+                blocks.append(b)
+                synth.feed([b])
+        pcm = synth.finish()
+        t_dev = time.perf_counter() - t0
+        err = float(np.abs(pcm - host).max()) if pcm.shape == host.shape \
+            else float("inf")
+        check(err < VORBIS_TOL, f"Vorbis {name}: device synth against the "
+              f"host decoder {pcm.shape} {host.shape}, max_abs_err {err}")
+        out[name] = {"seconds": secs, "host_xrt": secs / t_host,
+                     "device_xrt": secs / t_dev, "max_abs_err": err,
+                     "blocks": len(blocks)}
+        print(f"Vorbis {name}: {len(blocks)} blocks, {secs:.3f} s of audio; "
+              f"host pipeline {secs / t_host:.1f}x realtime, device synth "
+              f"fed a packet at a time {secs / t_dev:.1f}x (host symbol "
+              f"decode included), max_abs_err {err:.3g} against the host")
+        if name == "clicks 2 s":
+            a, b = (vorbis_synth(dec, blocks[0].coupling, c, dev,
+                                 band=False).process(blocks) for c in (7, 64))
+            check(np.array_equal(a, b), "Vorbis chunk 7 against chunk 64 "
+                  "on the card")
+            print("Vorbis clicks 2 s: chunk 7 and chunk 64 bit-equal on the "
+                  "card")
+        else:
+            out["synth"] = (synth, blocks)
+    ms = MultiStreamVorbisSynth(MS_SLOTS, 2, 256, 2048, chunk=16, device=dev)
+    inputs = ms.example_inputs(np.random.default_rng(0))
+    got = ms.step(*inputs).cpu().numpy()
+    want = MultiStreamVorbisSynth(MS_SLOTS, 2, 256, 2048, chunk=16,
+                                  device="cpu").step(*inputs).numpy()
+    err = float(np.abs(got - want).max())
+    check(err <= VORBIS_TOL * float(np.abs(want).max()),
+          f"MultiStreamVorbisSynth on the card: max_abs_err {err}, peak "
+          f"{np.abs(want).max()}")
+    print(f"MultiStreamVorbisSynth, {MS_SLOTS} streams, chunk 16, n1 2048: "
+          f"max_abs_err {err:.3g} against the CPU (peak "
+          f"{np.abs(want).max():.1f})")
+    out["multistream"] = {"max_abs_err": err, "ms": ms, "inputs": inputs}
+    return out
+
+
+def vorbis_timings(v, dev):
+    """The synth alone on one chunk of 512 stereo blocks (CUDA events),
+    beside its bound (2 B ch bl1 n1 operations of float32 at
+    FP32_OPS_PER_S, against its bytes) and one `torch.matmul` of the long
+    IMDCT on the same spectra; `MultiStreamVorbisSynth.step` likewise."""
+    synth, blocks = v.pop("synth")
+    got = {}
+    orig = synth.synth
+
+    def spy(*args):
+        got.setdefault("args", args)
+        return orig(*args)
+
+    synth.synth = spy
+    synth.process(blocks[:synth.chunk])
+    synth.synth = orig
+    args = got["args"]
+    B, ch, n1 = synth.chunk, synth.ch, synth.n1
+    t = {"ms": cuda_ms(lambda: synth.synth(*args), 10)}
+    long_rows = args[0][:B * ch * synth.bl1].reshape(B * ch, synth.bl1)
+    t["library_ms"] = cuda_ms(lambda: torch.matmul(long_rows,
+                                                   synth._imdct1), 10)
+    ops = 2 * B * ch * (synth.bl1 * n1 + synth.bl0 * synth.n0)
+    nbytes = (args[0].numel() * 4 + synth._imdct1.numel() * 4
+              + synth._imdct0.numel() * 4 + ch * synth._buf_len * 4)
+    t["bound_ms"], t["bound_by"] = _bound(nbytes, ops, FP32_OPS_PER_S)
+    print(f"Vorbis synth, a chunk of {B} stereo blocks (bl1 {synth.bl1}): "
+          f"{t['ms']:.4f} ms (CUDA events), one torch.matmul of the long "
+          f"IMDCT {t['library_ms']:.4f} ms, bound {t['bound_ms'] * 1e3:.3f} "
+          f"us ({t['bound_by']}: {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} "
+          f"MB)")
+    m = v["multistream"]
+    ms, inputs = m.pop("ms"), [torch.from_numpy(np.asarray(a)).to(dev)
+                               for a in m.pop("inputs")]
+    S, B, ch, n2 = ms.S, ms.B, ms.ch, ms.n1 // 2
+    m["ms"] = cuda_ms(lambda: ms.step(*inputs), 10)
+    ops = 2 * S * B * ch * n2 * ms.n1
+    nbytes = (2 * S * B * ch * n2 + S * ch * n2 + S * ch * ms.BUF
+              + n2 * ms.n1) * 4
+    m["bound_ms"], m["bound_by"] = _bound(nbytes, ops, FP32_OPS_PER_S)
+    print(f"MultiStreamVorbisSynth.step, S {S}, chunk {B}, n1 {ms.n1}: "
+          f"{m['ms']:.4f} ms (CUDA events), bound {m['bound_ms'] * 1e3:.3f} "
+          f"us ({m['bound_by']})")
+    v["synth_chunk"] = t
+    return v
+
+
 def kernel_entry(name, source, replaces, launches, err, t):
     """One entry of the kernels line; t: {"ms", "plain_ms", "bound_ms",
     "bound_by"} from this run, and for the device composer
@@ -1762,6 +2115,11 @@ def main():
     t16 = hbd_timings(hbd_key, cap16, prog16, dev)
     titx = itx_timings(itx_frames)
     compose_stages()
+    # the off-path modules: the multi-stream batch and Vorbis synthesis
+    batches = check_multistream(dev)
+    vorbis = check_vorbis(dev)
+    print(json.dumps({"multistream": multistream_timings(batches, dev),
+                      "vorbis": vorbis_timings(vorbis, dev)}))
     strip = dict(t["1080p"], ms=t["1080p"]["wavefront_ms"],
                  plain_ms=t["plain_ms"])
     mc = dict(ti["1080p"], plain_ms=ti["mc_plain_ms"])

@@ -236,7 +236,8 @@ class AV1Backend:
         r.f(bits)               # tg_start
         return r.f(bits) == n_tiles - 1
 
-    def _split_tiles(self, hdr: FrameHeader, payloads: List[bytes]) -> List[bytes]:
+    @staticmethod
+    def _split_tiles(hdr: FrameHeader, payloads: List[bytes]) -> List[bytes]:
         """Tile group parsing (spec §5.11.1)."""
         n_tiles = hdr.tile.cols * hdr.tile.rows
         tiles: List[bytes] = []

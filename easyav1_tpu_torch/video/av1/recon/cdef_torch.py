@@ -5,6 +5,8 @@ The direction search runs in int64 for every 8x8 luma unit, so it is
 exact whether or not the unit grid overhangs the plane (taps outside the
 plane read CDEF_VERY_LARGE); the JAX package searches on the host in
 that case.  The filter gathers each tap by the per-pixel direction.
+Leading dimensions are independent planes (a stream axis): a tap never
+reads across them.
 """
 
 from __future__ import annotations
@@ -77,14 +79,14 @@ def _floor_log2(x: torch.Tensor) -> torch.Tensor:
 def find_dirs(luma: torch.Tensor, uh: int, uw: int, coeff_shift: int,
               tabs: Dict[str, torch.Tensor]
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dir, var) int32 [uh, uw] per 8x8 unit of the deblocked luma
-    plane, padded to the unit grid with CDEF_VERY_LARGE."""
-    ph, pw = luma.shape
-    pad = torch.full((uh * 8, uw * 8), CDEF_VERY_LARGE, dtype=torch.int64,
-                     device=luma.device)
-    pad[:ph, :pw] = luma
-    n = uh * uw
-    blocks = pad.reshape(uh, 8, uw, 8).permute(0, 2, 1, 3).reshape(n, 64)
+    """(dir, var) int32 [..., uh, uw] per 8x8 unit of the deblocked luma
+    planes [..., ph, pw], padded to the unit grid with CDEF_VERY_LARGE."""
+    *lead, ph, pw = luma.shape
+    pad = torch.full((*lead, uh * 8, uw * 8), CDEF_VERY_LARGE,
+                     dtype=torch.int64, device=luma.device)
+    pad[..., :ph, :pw] = luma
+    n = uh * uw * int(np.prod(lead))
+    blocks = pad.reshape(*lead, uh, 8, uw, 8).transpose(-3, -2).reshape(n, 64)
     x = (blocks >> coeff_shift) - 128
     idx = tabs["cdef_partial_index"].reshape(1, 512).expand(n, 512)
     part = torch.zeros((n, 8 * 15), dtype=torch.int64, device=luma.device)
@@ -96,7 +98,8 @@ def find_dirs(luma: torch.Tensor, uh: int, uw: int, coeff_shift: int,
     oc = cost.gather(1, ((best + 4) & 7)[:, None])[:, 0]
     # int32 as the reference's host search casts it
     var = ((bc - oc) >> 10).to(torch.int32)
-    return best.to(torch.int32).reshape(uh, uw), var.reshape(uh, uw)
+    return (best.to(torch.int32).reshape(*lead, uh, uw),
+            var.reshape(*lead, uh, uw))
 
 
 def filter_plane(plane: torch.Tensor, dir_u: torch.Tensor,
@@ -104,11 +107,12 @@ def filter_plane(plane: torch.Tensor, dir_u: torch.Tensor,
                  sec_u: torch.Tensor, filt_u: torch.Tensor, ssx: int,
                  ssy: int, p: int, bd: int, damping: int,
                  tabs: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """CDEF of plane `p` ([ph, pw] int32, deblocked) from the per-unit
-    direction, variance, strengths (shifted by coeff_shift, 0 where the
-    unit is skipped) and filter flags ([uh, uw] int32).  `damping`
-    includes coeff_shift."""
-    ph, pw = plane.shape
+    """CDEF of plane `p` ([..., ph, pw] int32, deblocked) from the
+    per-unit direction, variance, strengths (shifted by coeff_shift, 0
+    where the unit is skipped) and filter flags ([..., uh, uw] int32).
+    `damping` includes coeff_shift: an int, or an int32 tensor that
+    broadcasts against the unit maps ([S, 1, 1], one a stream)."""
+    *lead, ph, pw = plane.shape
     cs = bd - 8
     bw = 8 >> (ssx if p else 0)
     bh = 8 >> (ssy if p else 0)
@@ -129,8 +133,8 @@ def filter_plane(plane: torch.Tensor, dir_u: torch.Tensor,
                            min=0)
 
     def up(u):
-        e = u.repeat_interleave(bh, 0).repeat_interleave(bw, 1)
-        return e[:ph, :pw]
+        e = u.repeat_interleave(bh, -2).repeat_interleave(bw, -1)
+        return e[..., :ph, :pw]
 
     pri = up(pri_u)
     sec = up(sec_u)
@@ -139,13 +143,18 @@ def filter_plane(plane: torch.Tensor, dir_u: torch.Tensor,
     pdir = up(pdir_u).long()
     filt = up(filt_u)
 
-    src = torch.full((ph + 4, pw + 4), CDEF_VERY_LARGE, dtype=torch.int32,
-                     device=plane.device)
-    src[2:2 + ph, 2:2 + pw] = plane
+    src = torch.full((*lead, ph + 4, pw + 4), CDEF_VERY_LARGE,
+                     dtype=torch.int32, device=plane.device)
+    src[..., 2:2 + ph, 2:2 + pw] = plane
     flat_src = src.reshape(-1)
     rows = torch.arange(ph, device=plane.device)[:, None]
     cols = torch.arange(pw, device=plane.device)[None, :]
     centre = (rows + 2) * (pw + 4) + cols + 2
+    if lead:
+        # each plane's taps index its own padded plane of flat_src
+        n = int(np.prod(lead))
+        centre = centre + (torch.arange(n, device=plane.device)
+                           * ((ph + 4) * (pw + 4))).reshape(*lead, 1, 1)
     dirs = tabs["cdef_directions"]                        # [8, 2, 2]
     step = dirs[..., 0] * (pw + 4) + dirs[..., 1]         # [8, 2]
 

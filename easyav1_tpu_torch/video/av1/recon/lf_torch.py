@@ -5,7 +5,8 @@ Within one pass every edge's read window is disjoint from every other
 edge's write window, so all edges of the pass filter at once from the
 pre-pass pixels.  Edges sit on the 4 px grid, so each tap is a strided
 view of the padded plane.  The horizontal pass runs on the transposed
-plane.
+plane.  Leading dimensions are independent planes (a stream axis): the
+pass filters them all with the same operations as one plane.
 """
 
 from __future__ import annotations
@@ -18,23 +19,24 @@ PAD = 8
 def pass_body(buf: torch.Tensor, size_m: torch.Tensor, limit: torch.Tensor,
               blimit: torch.Tensor, thresh: torch.Tensor,
               bd: int) -> torch.Tensor:
-    """One vertical-edge pass over an [H, W] int32 plane.  Edge e sits at
-    x = 4(e+1); size_m, limit, blimit, thresh are [H, ne] int32 maps
-    (size 0 = inactive, else the filter length 4, 6, 8 or 14)."""
-    H, W = buf.shape
+    """One vertical-edge pass over [..., H, W] int32 planes.  Edge e sits
+    at x = 4(e+1); size_m, limit, blimit, thresh are [..., H, ne] int32
+    maps (size 0 = inactive, else the filter length 4, 6, 8 or 14)."""
+    *lead, H, W = buf.shape
     ne = (W + 3) // 4 - 1
     if ne <= 0:
         return buf
     F = 1 << (bd - 8)
     half = 1 << (bd - 1)
     mxv = (1 << bd) - 1
-    B = torch.zeros((H, W + 2 * PAD), dtype=torch.int32, device=buf.device)
-    B[:, PAD:PAD + W] = buf
+    B = torch.zeros((*lead, H, W + 2 * PAD), dtype=torch.int32,
+                    device=buf.device)
+    B[..., PAD:PAD + W] = buf
     span = 4 * (ne - 1) + 1
 
     def lanes(off):
         s = PAD + 4 + off
-        return B[:, s:s + span:4]
+        return B[..., s:s + span:4]
 
     # taps P[k] at x-1-k, Q[k] at x+k, snapshotted before any write
     P = [lanes(-1 - k).clone() for k in range(7)]
@@ -140,4 +142,4 @@ def pass_body(buf: torch.Tensor, size_m: torch.Tensor, limit: torch.Tensor,
         v = torch.where(use14, f14[off], v)
         cur = lanes(off)
         cur.copy_(torch.where(wm, v, cur))
-    return B[:, PAD:PAD + W]
+    return B[..., PAD:PAD + W]

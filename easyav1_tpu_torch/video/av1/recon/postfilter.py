@@ -5,6 +5,11 @@ The host parameter maps come from the port's copies of the JAX
 package's planners: `_lf_size_maps` (`postfilter_fused.py:113`),
 `_cell_maps` (`lf_jax.py:197`), `_limits` (`lf_ref.py:55`) and
 `unit_maps` (`cdef_jax.py:281`).
+
+Planes and maps may carry a leading stream axis: `stack_maps` uploads
+the host maps of frames of one geometry from different streams stacked,
+and `postfilter_apply` filters them all in one launch sequence (the
+counterpart of `multistream_av1.batched_postfilter_real`'s vmap).
 """
 
 from __future__ import annotations
@@ -149,6 +154,14 @@ def postfilter_maps(hdr, seq, dims, grids_for, skip_grid: np.ndarray,
     lf_ref-style grids; skip_grid / cdef_idx_grid: the mi skip grid and
     the per-64x64 CDEF indices.  "lf" / "cdef" are None when the filter
     is off."""
+    return upload_maps(host_maps(hdr, seq, dims, grids_for, skip_grid,
+                                 cdef_idx_grid), device)
+
+
+def host_maps(hdr, seq, dims, grids_for, skip_grid: np.ndarray,
+              cdef_idx_grid: np.ndarray) -> Dict:
+    """`postfilter_maps` before the upload: the same dict of numpy
+    arrays, without CDEF's "tabs"."""
     bd = seq.color.bitdepth
     num_planes = len(dims)
     maps = {"bd": bd, "lf": None, "cdef": None}
@@ -158,11 +171,11 @@ def postfilter_maps(hdr, seq, dims, grids_for, skip_grid: np.ndarray,
     if lf_on:
         sizes_v, sizes_h, lims_v, lims_h = _lf_size_maps(
             hdr, bd, dims, num_planes, grids_for)
-        maps["lf"] = [convert.from_reference(
+        maps["lf"] = [
             {"sv": np.repeat(sizes_v[p], 4, axis=0)[:ph],
              "lv": np.repeat(lims_v[p], 4, axis=1)[:, :ph],
              "sh": np.repeat(sizes_h[p], 4, axis=0)[:pw],
-             "lh": np.repeat(lims_h[p], 4, axis=1)[:, :pw]}, device)
+             "lh": np.repeat(lims_h[p], 4, axis=1)[:, :pw]}
             for p, (ph, pw) in enumerate(dims)]
 
     cd = hdr.cdef
@@ -184,14 +197,78 @@ def postfilter_maps(hdr, seq, dims, grids_for, skip_grid: np.ndarray,
             "pri_y": cd.y_pri_strength, "sec_y": cd.y_sec_strength,
             "pri_uv": cd.uv_pri_strength if len(cd.uv_pri_strength) else nz,
             "sec_uv": cd.uv_sec_strength if len(cd.uv_sec_strength) else nz}
-        maps["cdef"] = convert.from_reference(
-            {k: (np.where(sel, np.asarray(v, np.int32)[safe], 0)
-                 << cs).astype(np.int32) for k, v in strengths.items()}
-            | {"filt": filt.astype(np.int32)}, device) | {
-            "cs": cs, "damping": cd.damping + cs,
-            "ss": (seq.color.subsampling_x, seq.color.subsampling_y),
-            "tabs": convert.tables(device)}
+        maps["cdef"] = {
+            k: (np.where(sel, np.asarray(v, np.int32)[safe], 0)
+                << cs).astype(np.int32) for k, v in strengths.items()} | {
+            "filt": filt.astype(np.int32), "cs": cs,
+            "damping": cd.damping + cs,
+            "ss": (seq.color.subsampling_x, seq.color.subsampling_y)}
     return maps
+
+
+def upload_maps(maps: Dict, device: torch.device) -> Dict:
+    """The numpy arrays of `host_maps` as tensors on `device`, with
+    CDEF's tables."""
+    def up(d):
+        arrays = {k: v for k, v in d.items() if isinstance(v, np.ndarray)}
+        return d | convert.from_reference(arrays, device)
+
+    out = dict(maps)
+    if maps["lf"] is not None:
+        out["lf"] = [up(m) for m in maps["lf"]]
+    if maps["cdef"] is not None:
+        out["cdef"] = up(maps["cdef"]) | {"tabs": convert.tables(device)}
+    return out
+
+
+def stack_maps(maps: List[Dict], dims, device: torch.device) -> Dict:
+    """The `host_maps` of S frames of one geometry and bit depth (planes
+    of shapes `dims`) as `upload_maps` gives them, each map stacked on a
+    leading stream axis ([S, ...]; CDEF's damping [S, 1, 1]).  Each
+    frame's arrays are copied into their slice of the stacked tensor on
+    `device`, with no copy on the host.  A frame whose filter is off gets
+    zero maps there, which filter nothing: size 0 deblocks no edge,
+    strength 0 leaves a pixel as it is (the JAX package pads the
+    zero-width edge maps of an LF-off stream,
+    `multistream_av1.py:298-307`).  "lf" or "cdef" is None only when it
+    is None for every frame."""
+    bds = {m["bd"] for m in maps}
+    if len(bds) != 1:
+        raise ValueError(f"one batch, one bit depth: {sorted(bds)}")
+
+    def stack(arrays, shape):
+        out = torch.empty((len(arrays), *shape), dtype=torch.int32,
+                          device=device)
+        for s, a in enumerate(arrays):
+            if a is None:
+                out[s].zero_()
+            else:
+                out[s].copy_(torch.from_numpy(np.ascontiguousarray(a)))
+        return out
+
+    out = {"bd": bds.pop(), "lf": None, "cdef": None}
+    if any(m["lf"] is not None for m in maps):
+        out["lf"] = []
+        for p, (ph, pw) in enumerate(dims):
+            nev, neh = max((pw + 3) // 4 - 1, 0), max((ph + 3) // 4 - 1, 0)
+            shapes = {"sv": (ph, nev), "lv": (3, ph, nev), "sh": (pw, neh),
+                      "lh": (3, pw, neh)}
+            out["lf"].append({k: stack([None if m["lf"] is None
+                                        else m["lf"][p][k] for m in maps],
+                                       shape)
+                              for k, shape in shapes.items()})
+    on = [m["cdef"] for m in maps if m["cdef"] is not None]
+    if on:
+        keys = ("pri_y", "sec_y", "pri_uv", "sec_uv", "filt")
+        per = [m["cdef"] or {} for m in maps]
+        out["cdef"] = {k: stack([d.get(k) for d in per], on[0][k].shape)
+                       for k in keys} | {
+            "cs": on[0]["cs"], "ss": on[0]["ss"],
+            "damping": torch.tensor(
+                [d.get("damping", on[0]["damping"]) for d in per],
+                dtype=torch.int32, device=device).reshape(-1, 1, 1),
+            "tabs": convert.tables(device)}
+    return out
 
 
 def postfilter_apply(planes: List[torch.Tensor], maps: Dict,
@@ -202,17 +279,21 @@ def postfilter_apply(planes: List[torch.Tensor], maps: Dict,
     before CDEF, which loop restoration reads above and below a stripe
     (`postfilter_fused.py:206`, `:256-257`).  No function here writes a
     plane it was given, so with LF off the snapshot is the input planes
-    and with CDEF off it is the result."""
+    and with CDEF off it is the result.  Planes [S, ph, pw] with the
+    maps of `stack_maps` filter S frames at once."""
     bd = maps["bd"]
     out = list(planes)
     if maps["lf"] is not None:
         for p, m in enumerate(maps["lf"]):
-            buf = lf_torch.pass_body(out[p], m["sv"], *m["lv"], bd)
-            out[p] = lf_torch.pass_body(buf.T, m["sh"], *m["lh"], bd).T
+            buf = lf_torch.pass_body(out[p], m["sv"], *m["lv"].unbind(-3),
+                                     bd)
+            out[p] = lf_torch.pass_body(buf.transpose(-1, -2), m["sh"],
+                                        *m["lh"].unbind(-3),
+                                        bd).transpose(-1, -2)
     deblocked = list(out)
     m = maps["cdef"]
     if m is not None:
-        uh, uw = m["filt"].shape
+        uh, uw = m["filt"].shape[-2:]
         dirs, var = cdef_torch.find_dirs(out[0], uh, uw, m["cs"], m["tabs"])
         out = [cdef_torch.filter_plane(
             out[p], dirs, var, m["pri_y" if p == 0 else "pri_uv"],

@@ -3,6 +3,7 @@ GPU: how many device operations one frame's stage launches, their summed
 device time, and how much of the stage's wall time the device is busy.
 
     python3 tools/torch_postfilter_profile.py [FRAME] [REPEATS]
+    python3 tools/torch_postfilter_profile.py --batch [SLOTS] [REPEATS]
 
 Decodes tests/data/bench/bench_av1_inter_1920x1080_60.webm (deblocking
 off, CDEF on) through the port up to inter frame FRAME (default 5) and
@@ -20,6 +21,15 @@ synchronised at its end, the idle time between operations, the busy
 share, and the ten operations that take the most device time.  Each
 stage is also timed without the profiler, for what the instrumentation
 costs.
+
+With --batch, it profiles the multi-stream postfilter instead: one batch
+of SLOTS (default 8) 1080p key frames, LF and CDEF not yet applied, half
+of tests/data/bench/bench_av1_intra_lf_1920x1080_8.webm (deblocking on)
+and half of bench_av1_intra_1920x1080_30.webm (deblocking off), C
+decoded (`multistream_av1.decode_frames_unfiltered_native`): the stacked
+pass (`postfilter_apply` over a stream axis, as
+`multistream_av1.batched_postfilter_real` runs it) against a pass a slot
+(as `batched_postfilter_loop` runs them), both on uploaded inputs.
 """
 
 import os
@@ -34,11 +44,14 @@ import torch  # noqa: E402
 
 import easyav1_tpu_torch  # noqa: E402
 from easyav1_tpu_torch.native import pipe  # noqa: E402
+from easyav1_tpu_torch.parallel import multistream_av1  # noqa: E402
 from easyav1_tpu_torch.video.av1.recon.postfilter import (  # noqa: E402
-    postfilter_apply, postfilter_maps)
+    postfilter_apply, postfilter_maps, upload_maps)
 
 BENCH = os.path.join(REPO, "tests", "data", "bench")
 STREAM = os.path.join(BENCH, "bench_av1_inter_1920x1080_60.webm")
+INTRA = os.path.join(BENCH, "bench_av1_intra_1920x1080_30.webm")
+INTRA_LF = os.path.join(BENCH, "bench_av1_intra_lf_1920x1080_8.webm")
 LR_GRAIN = os.path.join(BENCH, "bench_av1_lr_grain_1920x1080_8.webm")
 
 
@@ -106,7 +119,7 @@ def wall_ms(fn, reps):
 
 def profile(name, stage, reps):
     """Run `stage` under the profiler and print its counts (see the
-    module docstring)."""
+    module docstring); "per frame" is per call of `stage`."""
     wall_ms(stage, 3)                       # warm up
     plain = wall_ms(stage, reps)
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -144,14 +157,38 @@ def profile(name, stage, reps):
         print(f"  {n / reps:7.1f} {us / reps / 1e3:9.4f}  {op[:90]}")
 
 
+def profile_batch(slots, reps):
+    """The --batch mode (see the module docstring)."""
+    half = slots // 2
+    lf, intra = (multistream_av1.decode_frames_unfiltered_native(p, half)
+                 for p in (INTRA_LF, INTRA))
+    frames = [f for pair in zip(lf, intra) for f in pair]
+    dev = torch.device("cuda", 0)
+    planes, maps = multistream_av1.batch_inputs(frames, dev)
+    single = [upload_maps(m, dev)
+              for m in multistream_av1.batch_maps(frames)[1]]
+    damping = sorted(int(d) for d in maps["cdef"]["damping"].flatten())
+    print(f"a batch of {len(frames)} 1080p key frames, deblocking on in "
+          f"{half}, CDEF damping {damping}")
+    profile(f"stacked pass over {len(frames)} slots",
+            lambda: postfilter_apply(planes, maps), reps)
+    profile(f"a pass a slot, {len(frames)} slots",
+            lambda: [postfilter_apply([p[k] for p in planes], single[k])
+                     for k in range(len(frames))], reps)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("torch_postfilter_profile: no CUDA device")
-    index = int(sys.argv[1]) if len(sys.argv) > 1 else 5
-    reps = int(sys.argv[2]) if len(sys.argv) > 2 else 5
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
+    if sys.argv[1:2] == ["--batch"]:
+        profile_batch(int(sys.argv[2]) if len(sys.argv) > 2 else 8,
+                      int(sys.argv[3]) if len(sys.argv) > 3 else 5)
+        return
+    index = int(sys.argv[1]) if len(sys.argv) > 1 else 5
+    reps = int(sys.argv[2]) if len(sys.argv) > 2 else 5
     for title, path, k in (("1080p inter stream", STREAM, index),
                            ("1080p LR + grain stream", LR_GRAIN,
                             min(index, 7))):
