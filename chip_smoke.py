@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py
 
-Builds the port's five libraries from the checkout at first use, all at
-once: the C decoder (gcc, `easyav1_tpu_torch/native`) and the CUDA
-kernels (nvcc, `easyav1_tpu_torch/csrc/intra_strip.cu`,
+Builds the port's libraries from the checkout at first use, all at
+once: the C decoder (gcc, `easyav1_tpu_torch/native`), the C ABI's
+library and its client executable (gcc, `easyav1_tpu_torch/capi`) and
+the CUDA kernels (nvcc, `easyav1_tpu_torch/csrc/intra_strip.cu`,
 `csrc/inter_mc.cu`, `csrc/frame_hash.cu` and `csrc/itx.cu`, whose ptxas
 reports it prints).  Then:
 
@@ -64,7 +65,24 @@ reports it prints).  Then:
    (`host_residual=False`) on the 1080p intra and inter streams, the 4K
    10-bit stream, inter_modes_96x96, hbd_12p and hbd_444x10, each with
    its own counts: hash-equal to the native C session, no fallback, one
-   device composer launch a frame that has transforms;
+   device composer launch a frame that has transforms; then the C ABI
+   (`easyav1_tpu_torch/capi`, `check_capi`): its library loaded into
+   this process decodes every frame of the three bench streams and of
+   inter_modes_96x96 through `easyav1_decode_next` and
+   `easyav1_get_video_frame` on the card, each stream with its own
+   counts, hash-equal to the native C session with no fallback and the
+   main path's launches, and the 4K 10-bit stream again under
+   `EASYAV1_HOST_RESID=0` with one device composer launch a frame that
+   has transforms; its client executable, in a process of its own,
+   decodes the 1080p inter stream with per-frame hashes computed in C
+   equal and its status FINISHED; and under `EASYAV1_PIPE=device` the
+   postfilter pipe (C recon, then LF, CDEF and LR on the card) decodes
+   the 1080p LR + grain stream, bench_av1_intra_lf_1920x1080_8.webm,
+   the 4K 10-bit stream and superres_lr_1920x128 hash-equal, with the
+   superres frames, and only those, on the C path; with the fps of one
+   pass each through the C ABI and the client, and the postfilter
+   pipe's stages (phase 3 sets the C ABI's fps beside the Python API's
+   and the native C session's);
 3. times, in this run (CUDA events for kernels, the host clock around
    synchronised work for stages): the strip kernel under the wavefront
    and the sequential schedule at 1080p and 4K, 6a on a 1080p and a 4K
@@ -117,6 +135,7 @@ failure.  The line before the last gives the card's name and power
 limit, the last line the device summary.
 """
 
+import ctypes
 import json
 import os
 import subprocess
@@ -129,10 +148,11 @@ import numpy as np
 import torch
 
 import easyav1_tpu_torch
-from easyav1_tpu_torch import _build, native
+from easyav1_tpu_torch import _build, capi, native
 from easyav1_tpu_torch.api import frame_hash, native_session
 from easyav1_tpu_torch.audio.vorbis import VorbisDecoder
 from easyav1_tpu_torch.audio.vorbis.device import VorbisDeviceSynth
+from easyav1_tpu_torch.capi.bridge import _VideoFrame
 from easyav1_tpu_torch.container import TrackType, WebMDemuxer
 from easyav1_tpu_torch.native import pipe
 from easyav1_tpu_torch.native.pipe import first_frame_inputs
@@ -228,14 +248,15 @@ def check(cond, what):
 
 
 def build():
-    """The four libraries, built at once; prints ptxas's reports."""
+    """The C decoder, the C ABI's library and client, and the four
+    kernel libraries, built at once; prints ptxas's reports."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1 + len(KERNEL_SOURCES)) as ex:
-        jobs = [ex.submit(native._load)] + [ex.submit(_build.build, name)
-                                            for name in KERNEL_SOURCES]
+    with ThreadPoolExecutor(2 + len(KERNEL_SOURCES)) as ex:
+        jobs = [ex.submit(native._load), ex.submit(capi.build)] + [
+            ex.submit(_build.build, name) for name in KERNEL_SOURCES]
         for j in jobs:
             j.result()
-    print(f"build (gcc and {len(KERNEL_SOURCES)} nvcc at once) "
+    print(f"build (gcc twice and {len(KERNEL_SOURCES)} nvcc at once) "
           f"{time.perf_counter() - t0:.3f} s")
     for name in KERNEL_SOURCES:
         _build.load(name)
@@ -1057,13 +1078,15 @@ COMPOSER_STREAMS = [s for s in STREAMS if s[0] in (
     "1080p intra", "1080p inter", "inter modes 96x96")]
 COMPOSER_STREAMS_HBD = [s for s in HBD_STREAMS if s[0] in (
     "4K 10-bit", "12-bit inter 96x96", "10-bit 4:4:4 96x96")]
-# the native C session's frame hashes, by stream
-NATIVE = {}
+# the native C session's frame hashes, and the wall seconds of that pass,
+# by stream
+NATIVE, NATIVE_WALL = {}, {}
 
 
 def native_hashes(path):
     if path not in NATIVE:
-        NATIVE[path] = decode_hashes(lambda: native_session(path))[0]
+        NATIVE[path], NATIVE_WALL[path] = decode_hashes(
+            lambda: native_session(path))
     return NATIVE[path]
 
 
@@ -1691,10 +1714,11 @@ def compose_stages():
     frames of the intra stream) and on the key frame; the bytes of the
     residual uploaded a frame (int16 planes, or packed records and coded
     rows); and the port's fps in each mode beside the native C
-    session's."""
+    session's, which it returns by stream."""
     stages = ("prepare", "pack", "compose", "upload")
+    out = {}
     for name, path, n in COMPOSE_STREAMS:
-        fps = {}
+        fps = out[name] = {}
         for host in (True, False):
             mode = "host C composer" if host else "device composer"
             sizes, upload = [], IntraRecon.upload
@@ -1735,10 +1759,268 @@ def compose_stages():
                 path, device="cuda", host_residual=host))
             fps[mode] = n / wall
         _, wall = decode_hashes(lambda: native_session(path))
+        fps["native"] = n / wall
         print(f"{name} {n} frames: port with the host C composer "
               f"{fps['host C composer']:.3f} fps, with the device composer "
               f"{fps['device composer']:.3f} fps, native C session "
               f"{n / wall:.3f} fps (this host)")
+    return out
+
+
+# ------------------------------------------------------- the C ABI
+
+# the C ABI's main pipe: the three bench streams and inter_modes_96x96,
+# with their launches as on the Python API
+CAPI_STREAMS = [s for s in STREAMS + HBD_STREAMS if s[0] in (
+    "1080p inter", "1080p intra", "4K 10-bit", "inter modes 96x96")]
+# the postfilter pipe (EASYAV1_PIPE=device): name, path, frames shown
+POSTFILTER_STREAMS = [
+    ("1080p LR + grain", LR_GRAIN_1080, 8),
+    ("1080p intra, deblocking", LF_1080, 8),
+    ("4K 10-bit", HBD_4K, 8),
+    ("superres + LR 1920x128",
+     os.path.join(SMOKE, "superres_lr_1920x128.webm"), 3)]
+BITS_PER_COLOR_8 = 1        # easyav1.h's EASYAV1_BITS_PER_COLOR_8
+
+
+class CAbi:
+    """The port's C ABI (`capi.LIB`) loaded into this process: its shim
+    finds this interpreter initialised and imports the bridge here, so
+    its sessions share this process's `stats` and launch counters.  The
+    session's device and pipe come from the environment, as for any C
+    program (`capi/bridge.py`)."""
+
+    def __init__(self):
+        lib = ctypes.CDLL(str(capi.LIB))
+        vp = ctypes.c_void_p
+        lib.easyav1_init_from_filename.restype = vp
+        lib.easyav1_init_from_filename.argtypes = [ctypes.c_char_p, vp]
+        for name in ("easyav1_decode_next", "easyav1_has_video_frame",
+                     "easyav1_get_status"):
+            getattr(lib, name).restype = ctypes.c_int
+            getattr(lib, name).argtypes = [vp]
+        lib.easyav1_get_video_frame.restype = ctypes.POINTER(_VideoFrame)
+        lib.easyav1_get_video_frame.argtypes = [vp]
+        lib.easyav1_destroy.restype = None
+        lib.easyav1_destroy.argtypes = [ctypes.POINTER(vp)]
+        self.lib = lib
+
+    @staticmethod
+    def planes(f):
+        """numpy views of a pulled `easyav1_video_frame`'s planes."""
+        p = f.properties
+        w, h = p.width, p.height
+        cw, ch = {2: ((w + 1) >> 1, (h + 1) >> 1),
+                  3: ((w + 1) >> 1, h)}.get(p.pixel_layout, (w, h))
+        dt = np.uint8 if p.bits_per_color == BITS_PER_COLOR_8 else np.uint16
+        out = []
+        for i in range(3):
+            if not f.data[i]:
+                break
+            pw, ph = (w, h) if i == 0 else (cw, ch)
+            raw = (ctypes.c_uint8 * (f.stride[i] * ph)).from_address(
+                f.data[i])
+            out.append(np.frombuffer(raw, dt).reshape(ph, -1)[:, :pw])
+        return out
+
+    def decode_hashes(self, path):
+        """(frame hashes, wall seconds) of every frame of a stream, pulled
+        through the C ABI (default settings: `easyav1_decode_next`, then
+        `easyav1_get_video_frame` while `easyav1_has_video_frame`); the
+        session must end FINISHED."""
+        lib = self.lib
+        t0 = time.perf_counter()
+        h = ctypes.c_void_p(lib.easyav1_init_from_filename(path.encode(),
+                                                           None))
+        check(h.value, f"C ABI init of {path} returned NULL")
+        hashes = []
+        try:
+            for _ in range(4096):
+                st = lib.easyav1_decode_next(h)
+                while lib.easyav1_has_video_frame(h):
+                    f = lib.easyav1_get_video_frame(h)
+                    check(bool(f), f"C ABI {path}: a NULL frame")
+                    hashes.append(frame_hash(self.planes(f.contents)))
+                if st != 1:
+                    break
+            status = lib.easyav1_get_status(h)
+        finally:
+            lib.easyav1_destroy(ctypes.byref(h))
+        check(status == 2, f"C ABI {path}: status {status}, not FINISHED")
+        return hashes, time.perf_counter() - t0
+
+
+class SuperresFrames:
+    """Within the block, whether each frame that reaches the port's pipe
+    has superres (`pipe.decode_and_recon`'s frame headers)."""
+
+    def __enter__(self):
+        self.frames, self.fn = [], pipe.decode_and_recon
+
+        def spy(seq, hdr, *a, **k):
+            self.frames.append(bool(getattr(hdr, "use_superres", False)))
+            return self.fn(seq, hdr, *a, **k)
+
+        pipe.decode_and_recon = spy
+        return self
+
+    def __exit__(self, *exc):
+        pipe.decode_and_recon = self.fn
+
+
+def run_client(path):
+    """The port's client (`capi/capi_smoke.c`) in a process of its own on
+    a stream, on the card: (key=value pairs, per-frame hashes).  The
+    interpreter it embeds finds the repository and this interpreter's
+    packages (torch, numpy) on PYTHONPATH."""
+    site = os.path.dirname(os.path.dirname(torch.__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO, site]))
+    r = subprocess.run([str(capi.CLIENT), path], capture_output=True,
+                       text=True, env=env, timeout=300)
+    check(r.returncode == 0, f"the C client on {path}: rc {r.returncode}\n"
+          f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    kv, hashes = {}, []
+    for line in r.stdout.splitlines():
+        if line.startswith("frame="):
+            hashes.append(int(line.rsplit("hash=", 1)[1]))
+            continue
+        for part in line.split():
+            if "=" in part:
+                k, v = part.split("=", 1)
+                kv[k] = v
+    return kv, hashes
+
+
+def check_capi():
+    """Phase 2b: the C ABI.  Its main pipe on every frame of the three
+    bench streams and inter_modes_96x96, in this process, each stream
+    with the launch counts set to 0 just before it and read just after:
+    hash-equal to the native C session, no fallback, the launches of the
+    Python API's main path; the 4K 10-bit stream again under
+    `EASYAV1_HOST_RESID=0`, one device composer launch a frame that has
+    transforms; the client executable in a process of its own on the
+    1080p inter stream, its per-frame hashes (computed in C) equal and
+    its status FINISHED, its decode rate as tools/easyav1_benchmark.c
+    measures it; then the postfilter pipe (`EASYAV1_PIPE=device`) on
+    POSTFILTER_STREAMS, hash-equal, the superres frames, and only those,
+    declined to the C path.  Returns the fps of one pass each through
+    the C ABI (`capi_fps` sets them beside the Python API's), the
+    client's decode rate and the postfilter pipe's stages
+    (`postfilter_stages`)."""
+    abi = CAbi()
+    fps = {}
+    runs = [(s, False) for s in CAPI_STREAMS] + [
+        (s, True) for s in CAPI_STREAMS if s[0] == "4K 10-bit"]
+    for (name, path, n, want), device_composer in runs:
+        mode = " (EASYAV1_HOST_RESID=0)" if device_composer else ""
+        if device_composer:
+            os.environ["EASYAV1_HOST_RESID"] = "0"
+        easyav1_tpu_torch.stats.update(frames=0, fallbacks=0)
+        reset_counts()
+        try:
+            with ComposerCalls() as composer:
+                got, wall = abi.decode_hashes(path)
+        finally:
+            os.environ.pop("EASYAV1_HOST_RESID", None)
+        c, stats = counts(), dict(easyav1_tpu_torch.stats)
+        native_h = native_hashes(path)
+        print(f"C ABI {name}{mode}: {len(got)} frames in {wall:.3f} s, "
+              f"stats {stats}, launches {c}")
+        check(len(got) == n and got == native_h,
+              f"C ABI {name}{mode}: {len(got)} frames, "
+              f"{sum(a != b for a, b in zip(got, native_h))} differ")
+        itx_want = composer.with_transforms if device_composer else 0
+        check(stats == {"frames": want[0], "fallbacks": 0}
+              and tuple(c.values()) == want + (0, itx_want)
+              and (itx_want > 0 or not device_composer),
+              f"C ABI {name}{mode}: stats {stats}, launches {c}, want "
+              f"{want} (strip, 6a, 6b) and {itx_want} composer launches")
+        if not device_composer:
+            fps[name] = n / wall
+    kv, hashes = run_client(INTER_1080)
+    check(hashes == native_hashes(INTER_1080) and kv["decode_status"] == "2"
+          and kv["rate_status"] == "2"
+          and int(kv["rate_frames"]) == len(hashes)
+          and int(kv["pull_hash"]) == hashes[0],
+          f"the C client on the 1080p inter stream: {kv}, {len(hashes)} "
+          "frames, "
+          f"{sum(a != b for a, b in zip(hashes, native_hashes(INTER_1080)))}"
+          " differ")
+    client = float(kv["rate_fps"])
+    print(f"C client 1080p inter: {len(hashes)} frames hash-equal, status "
+          f"FINISHED, decode rate {client} fps over {kv['rate_frames']} "
+          "frames (tools/easyav1_benchmark.c's loop: no hash, no pull)")
+    # the native session refuses to run under EASYAV1_PIPE=device
+    for _name, path, _n in POSTFILTER_STREAMS:
+        native_hashes(path)
+    os.environ["EASYAV1_PIPE"] = "device"
+    try:
+        for name, path, n in POSTFILTER_STREAMS:
+            native_h = native_hashes(path)
+            easyav1_tpu_torch.stats.update(frames=0, fallbacks=0)
+            reset_counts()
+            with SuperresFrames() as sr:
+                got, wall = abi.decode_hashes(path)
+            c, stats = counts(), dict(easyav1_tpu_torch.stats)
+            check(got == native_h and len(got) == n,
+                  f"postfilter pipe {name}: {len(got)} frames, "
+                  f"{sum(a != b for a, b in zip(got, native_h))} differ")
+            # the superres frames, and only those, take the C path; the
+            # pipe launches none of the hand kernels
+            check(stats == {"frames": len(sr.frames),
+                            "fallbacks": sum(sr.frames)}
+                  and any(sr.frames) == name.startswith("superres")
+                  and not any(c.values()),
+                  f"postfilter pipe {name}: stats {stats}, superres "
+                  f"{sr.frames}, launches {c}")
+            fps[f"postfilter {name}"] = n / wall
+            print(f"C ABI postfilter pipe (EASYAV1_PIPE=device) {name}: "
+                  f"{len(got)} frames hash-equal in {wall:.3f} s "
+                  f"({n / wall:.3f} fps), stats {stats}, superres frames "
+                  f"{sum(sr.frames)}")
+    finally:
+        os.environ.pop("EASYAV1_PIPE", None)
+    return {"fps": fps, "client_1080p_inter_fps": client,
+            "postfilter_stages": postfilter_stages()}
+
+
+def capi_fps(c_abi, composer_fps):
+    """The C ABI's fps on the bench streams beside the Python API's (the
+    host C composer) and the native C session's from `compose_stages`,
+    one pass each in this run, all with the frame hash."""
+    for name, _path, n in COMPOSE_STREAMS:
+        f = composer_fps[name]
+        print(f"{name}, {n} frames, one pass each, with the frame hash: C "
+              f"ABI (pull path) {c_abi['fps'][name]:.3f} fps, Python API "
+              f"{f['host C composer']:.3f}, native C session "
+              f"{f['native']:.3f}")
+
+
+def postfilter_stages():
+    """The postfilter pipe's stages through the Python API
+    (`pipe="postfilter"`), median ms a frame over each stream's frames
+    (host clock, the device synchronised at each stage's end), on the
+    streams of POSTFILTER_STREAMS without superres."""
+    out = {}
+    for name, path, n in POSTFILTER_STREAMS:
+        if name.startswith("superres"):
+            continue
+        pipe.stage_log = []
+        try:
+            decode_hashes(lambda: easyav1_tpu_torch.EasyAV1(
+                path, device="cuda", pipe="postfilter"))
+            log = list(pipe.stage_log)
+        finally:
+            pipe.stage_log = None
+        check(len(log) == n, f"postfilter stages {name}: {len(log)} frames")
+        names = [k for k in ("entropy", "recon", "upload", "lf_cdef", "lr",
+                             "tail", "grain") if any(k in d for d in log)]
+        med = {k: _median(d.get(k, 0.0) for d in log) * 1e3 for k in names}
+        med["total"] = _median(sum(d.values()) for d in log) * 1e3
+        out[name] = med
+        print(f"postfilter pipe {name}: median over {n} frames (ms): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in med.items()))
+    return out
 
 
 # --------------------------------------------- the multi-stream batch
@@ -2108,18 +2390,21 @@ def main():
           f"the device composer never ran: {composer}, {composer16}")
     print(f"main path launches with the device composer: 8-bit streams "
           f"{composer}, 10- and 12-bit streams {composer16}")
+    # the C ABI: its main pipe, the client executable, its postfilter pipe
+    c_abi = check_capi()
     t = timings(frames, dev)
     ti = inter_timings(caps, prog, dev)
     th = hash_timings(dev)
     stage_timings(stage_inputs, dev)
     t16 = hbd_timings(hbd_key, cap16, prog16, dev)
     titx = itx_timings(itx_frames)
-    compose_stages()
+    capi_fps(c_abi, compose_stages())
     # the off-path modules: the multi-stream batch and Vorbis synthesis
     batches = check_multistream(dev)
     vorbis = check_vorbis(dev)
     print(json.dumps({"multistream": multistream_timings(batches, dev),
-                      "vorbis": vorbis_timings(vorbis, dev)}))
+                      "vorbis": vorbis_timings(vorbis, dev),
+                      "c_abi": c_abi}))
     strip = dict(t["1080p"], ms=t["1080p"]["wavefront_ms"],
                  plain_ms=t["plain_ms"])
     mc = dict(ti["1080p"], plain_ms=ti["mc_plain_ms"])

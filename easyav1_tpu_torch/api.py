@@ -13,6 +13,10 @@ indexes `frame.data`.  `host_residual` chooses the residual composer of
 a device session: the host C composer (True, the default) or the
 device's (False); None reads the reference's setting,
 `EASYAV1_HOST_RESID=0` for the device's (`host_residual_default`).
+`pipe` chooses a device session's pipe: "recon", the main pipe (the
+reference's `EASYAV1_PIPE=pallas`), or "postfilter", the C recon with
+deblocking, CDEF and loop restoration then run on the device (its
+`EASYAV1_PIPE=device`).
 `native_session` is that C path, the yardstick the port is held to, and
 `frame_hash` the frame hash both are compared by.
 
@@ -34,6 +38,7 @@ import torch
 from easyav1_tpu_torch.container import webm as W
 from easyav1_tpu_torch.container.webm import Packet, TrackType, WebMDemuxer
 from easyav1_tpu_torch.io.stream import Stream, open_stream
+from easyav1_tpu_torch.native.pipe import PIPES
 from easyav1_tpu_torch.settings import EasyAV1Settings, EasyAV1Status, default_settings
 from easyav1_tpu_torch.types import AudioFrame, VideoFrame
 from easyav1_tpu_torch.utils.log import Logger
@@ -65,11 +70,12 @@ class VideoBackend:
 
 
 def _make_video_backend(track: W.TrackInfo, device, threads: int = 0,
-                        resident: bool = False, host_residual: bool = True):
+                        resident: bool = False, host_residual: bool = True,
+                        pipe: str = "recon"):
     if track.codec_id == W.CODEC_AV1:
         from easyav1_tpu_torch.video.av1.backend import AV1Backend
         return AV1Backend(track, device, threads=threads, resident=resident,
-                          host_residual=host_residual)
+                          host_residual=host_residual, pipe=pipe)
     return None
 
 
@@ -108,7 +114,10 @@ class EasyAV1:
     def __init__(self, source, settings: Optional[EasyAV1Settings] = None,
                  close_handle_on_destroy: Optional[bool] = None,
                  device="cuda", resident: bool = False,
-                 host_residual: Optional[bool] = None):
+                 host_residual: Optional[bool] = None, pipe: str = "recon"):
+        if pipe not in PIPES:
+            raise ValueError(f"pipe={pipe!r}: not one of {PIPES}")
+        self.pipe = pipe
         self.device = resolve_device(device)
         # the residual planes of a device session: the host C composer,
         # or the device composer (csrc/itx.cu)
@@ -206,7 +215,8 @@ class EasyAV1:
             track = videos[s.video_track]
             backend = _make_video_backend(track, self.device,
                                           self.settings.video_threads,
-                                          self.resident, self.host_residual)
+                                          self.resident, self.host_residual,
+                                          self.pipe)
             if backend is None:
                 self.log.warning(
                     f"unsupported video codec {track.codec_id!r}; "

@@ -1,11 +1,17 @@
-"""The port's frame pipe: the C entropy decoder's export feeds the device.
+"""The port's frame pipes: the C entropy decoder's export feeds the device.
 
-The counterpart of the reference's device pipe: `_pallas_frame` for intra
-frames (its intrabc branch included), `_device_frame_inter` for inter
-frames, `_device_pipe_finish` (LF, the deblocked snapshot, CDEF, superres
-of both, loop restoration), the crop-and-cast tail and `_LazyPlanes`
-(`easyav1_tpu/native/__init__.py:1203-1242`, `:1274-1460`, `:1533-1577`),
-and film grain on the display copy (`backend.py:499-529` there).  The
+Two pipes, as the reference has two device pipes.  "recon", the main
+pipe, is the counterpart of `EASYAV1_PIPE=pallas`: `_pallas_frame` for
+intra frames (its intrabc branch included), `_device_frame_inter` for
+inter frames, `_device_pipe_finish` (LF, the deblocked snapshot, CDEF,
+superres of both, loop restoration), the crop-and-cast tail and
+`_LazyPlanes` (`easyav1_tpu/native/__init__.py:1203-1242`, `:1274-1460`,
+`:1533-1577`), and film grain on the display copy (`backend.py:499-529`
+there).  "postfilter" is the counterpart of `EASYAV1_PIPE=device`
+(`native/__init__.py:1121-1145`, `_device_postfilter` `:1580-1612`
+there): the C recon with deblocking, CDEF and loop restoration held back
+(`recon_unfiltered`), then those filters, the tail and film grain on the
+device; superres frames take the whole C path, counted as fallbacks.  The
 entropy decoder and the record export are the port's own copy of the C
 decoder (`native/`); the host planners are the port's copies of the JAX
 package's (`recon/records.py`, `recon/mc_plan.py`).
@@ -53,7 +59,9 @@ def _count(fallback: bool) -> None:
 # When a list, each frame the pipe covers appends {stage: wall seconds}
 # (the device synchronised at every stage's end): "entropy", "plan",
 # "prepare", "pack", "compose", "upload", "mc", "intra", "lf_cdef", "sr",
-# "lr", "tail", "grain" (the last four only where the frame has them).
+# "lr", "tail", "grain" (the last four only where the frame has them);
+# on the postfilter pipe "entropy", "recon" (the C recon), "upload",
+# "lf_cdef", "lr", "tail", "grain".
 # "compose" is the residual composer: the host C composer inside the
 # host prepare, or the device composer's kernel after the upload;
 # "pack" is the device composer's host packing of the coded rows
@@ -397,6 +405,51 @@ def first_frame_inputs(path: str, device: torch.device,
     return inp | {"hdr": hdr, "seq": seq, "dense": dense}
 
 
+def recon_unfiltered(lib, seq, hdr, out, fp_rc, rp, rfl):
+    """The 16-bit C recon of an entropy-decoded frame without superres,
+    with deblocking, CDEF and loop restoration held back (the
+    reference's `EASYAV1_PIPE=device` recon, `native/__init__.py:1121-
+    1137` there): the mi-aligned uint16 planes, or None if the recon
+    fails.  rp and fp_rc keep their real filter parameters, which the
+    grid export and the filters read.  rfl: the reference planes
+    (`_c_refs`)."""
+    ssx, ssy = seq.color.subsampling_x, seq.color.subsampling_y
+    aw, ah = hdr.mi_cols * 4, hdr.mi_rows * 4
+    pl = [np.zeros((ah, aw), np.uint16),
+          np.zeros((ah >> ssy, aw >> ssx), np.uint16),
+          np.zeros((ah >> ssy, aw >> ssx), np.uint16)]
+    saved = tuple(rp.lf_level), rp.enable_cdef, fp_rc.lr_uses
+    rp.lf_level = (ctypes.c_int32 * 4)(0, 0, 0, 0)
+    rp.enable_cdef = fp_rc.lr_uses = 0
+    try:
+        rc = lib.av1_recon_frame(ctypes.byref(rp), ctypes.byref(out),
+                                 ctypes.byref(fp_rc), ctypes.byref(rfl),
+                                 *(nat._vp(p) for p in pl))
+    finally:
+        rp.lf_level = (ctypes.c_int32 * 4)(*saved[0])
+        rp.enable_cdef, fp_rc.lr_uses = saved[1:]
+    return pl[:seq.color.num_planes] if rc == 0 else None
+
+
+def _postfilter_frame(lib, seq, hdr, out, bufs, fp_rc, rp, refs, device,
+                      clock):
+    """The postfilter pipe's frame: `recon_unfiltered`, then the planes'
+    upload and `_finish` (LF, CDEF, loop restoration) on the device.
+    Returns the post-filtered device planes, or None if the C recon
+    fails."""
+    rfl, keep_refs = _c_refs(None if hdr.frame_is_intra else refs)
+    planes = recon_unfiltered(lib, seq, hdr, out, fp_rc, rp, rfl)
+    del keep_refs
+    clock.mark("recon")
+    if planes is None:
+        return None
+    dev = [torch.from_numpy(p.astype(np.int32)).to(device) for p in planes]
+    clock.mark("upload", device)
+    return _finish(dev, seq, hdr, out, bufs,
+                   (nat._grids_exporter(lib, rp, out), bufs["grids"]["skip"],
+                    bufs["cdef"]), clock)
+
+
 def _c_recon(lib, seq, hdr, out, fp_rc, rp, rfl):
     """The 16-bit C recon + postfilters on the entropy output.
     Returns (display planes, ref triples of DevRef) or None if the recon
@@ -444,12 +497,17 @@ def _c_refs(refs):
     return rfl, keep
 
 
+PIPES = ("recon", "postfilter")
+
+
 def decode_and_recon(seq, hdr, tiles: List[bytes], device: torch.device,
                      cdf_in=None, want_cdf=False, tpl=None, refs=None,
                      threads=0, resident=False, grain=None,
-                     host_residual=True) -> Optional[Tuple]:
+                     host_residual=True, pipe="recon") -> Optional[Tuple]:
     """Entropy decode in C, then the port's device recon (or the C recon
-    for a declined frame).  Returns (display planes, cdf blob or None,
+    for a declined frame); with `pipe` "postfilter", the C recon without
+    its filters, then the filters on the device (the C path for a
+    superres frame).  Returns (display planes, cdf blob or None,
     mv grids or None, ref triples), or None when the C entropy decoder
     declines the frame.  refs: per-slot triples of (DevRef, logical w,
     logical h).  The display planes of a frame the device made are a
@@ -475,15 +533,19 @@ def decode_and_recon(seq, hdr, tiles: List[bytes], device: torch.device,
     if not hdr.frame_is_intra:
         mv_grids = (bufs["ref0"], bufs["ref1"], bufs["mvs"])
     got = None
-    if covers(seq, hdr):
+    if pipe == "postfilter":
+        if not getattr(hdr, "use_superres", False):
+            got = _postfilter_frame(lib, seq, hdr, out, bufs, fp_rc, rp,
+                                    refs, device, clock)
+    elif covers(seq, hdr):
         got = (_intra_frame(lib, seq, hdr, out, bufs, rp, device, clock,
                             host_residual)
                if hdr.frame_is_intra else
                _inter_frame(lib, seq, hdr, out, bufs, rp, refs, device,
                             clock, host_residual))
-        if got is not None:
-            got = _tail(got, seq, hdr, resident, grain, clock)
-            clock.close()
+    if got is not None:
+        got = _tail(got, seq, hdr, resident, grain, clock)
+        clock.close()
     _count(fallback=got is None)
     if got is None:
         rfl, keep_refs = _c_refs(None if hdr.frame_is_intra else refs)

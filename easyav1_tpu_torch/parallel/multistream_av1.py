@@ -21,7 +21,6 @@ port's tests).
 
 from __future__ import annotations
 
-import ctypes
 import time
 from typing import List, Sequence
 
@@ -32,6 +31,7 @@ from easyav1_tpu_torch import native as nat
 from easyav1_tpu_torch.api import frame_hash, native_session, resolve_device
 from easyav1_tpu_torch.container import TrackType, WebMDemuxer
 from easyav1_tpu_torch.container.webm import TrackInfo
+from easyav1_tpu_torch.native.pipe import recon_unfiltered
 from easyav1_tpu_torch.video.av1 import constants as C
 from easyav1_tpu_torch.video.av1.backend import AV1Backend, AV1DecodeError
 from easyav1_tpu_torch.video.av1.headers import (HeaderParser,
@@ -70,7 +70,8 @@ class _Parser:
 
 def _unfiltered_frame(lib, seq, hdr, tiles):
     """C entropy + recon of one intra frame with LF and CDEF suppressed
-    (`multistream_av1.py:206-247`): (seq, hdr, mi-aligned uint16 planes,
+    (`multistream_av1.py:206-247`; the postfilter pipe's
+    `pipe.recon_unfiltered`): (seq, hdr, mi-aligned uint16 planes,
     LF grids by plane, mi skip grid, CDEF index grid), every part a
     snapshot (the decoder's buffers are reused by the next frame)."""
     if not hdr.frame_is_intra:
@@ -86,26 +87,12 @@ def _unfiltered_frame(lib, seq, hdr, tiles):
         raise AV1DecodeError("the C decoder declined the frame")
     out, bufs, _blob, (fp_rc, _keep) = res
     rp = nat._build_rp(seq, hdr)
-    aw, ah = hdr.mi_cols * 4, hdr.mi_rows * 4
-    ssx, ssy = seq.color.subsampling_x, seq.color.subsampling_y
-    pl = [np.zeros((ah, aw), np.uint16),
-          np.zeros((ah >> ssy, aw >> ssx), np.uint16),
-          np.zeros((ah >> ssy, aw >> ssx), np.uint16)]
-    saved = tuple(rp.lf_level), rp.enable_cdef
-    rp.lf_level = (ctypes.c_int32 * 4)(0, 0, 0, 0)
-    rp.enable_cdef = 0
-    rc = lib.av1_recon_frame(ctypes.byref(rp), ctypes.byref(out),
-                             ctypes.byref(fp_rc),
-                             ctypes.byref(nat._RefPlanes()),
-                             *(nat._vp(p) for p in pl))
-    if rc != 0:
+    pl = recon_unfiltered(lib, seq, hdr, out, fp_rc, rp, nat._RefPlanes())
+    if pl is None:
         raise AV1DecodeError("the C recon failed")
-    rp.lf_level = (ctypes.c_int32 * 4)(*saved[0])
-    rp.enable_cdef = saved[1]
-    n_pl = seq.color.num_planes
     grids_for = nat._grids_exporter(lib, rp, out)
-    grids = {p: grids_for(p, pl[p].shape) for p in range(n_pl)}
-    return (seq, hdr, pl[:n_pl], grids, bufs["grids"]["skip"].copy(),
+    grids = {p: grids_for(p, pl[p].shape) for p in range(len(pl))}
+    return (seq, hdr, pl, grids, bufs["grids"]["skip"].copy(),
             bufs["cdef"].copy())
 
 

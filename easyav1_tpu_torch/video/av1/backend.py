@@ -11,7 +11,10 @@ The reference's `AV1Backend` with one of two routes for every frame:
   included, and declines the rest to the C recon (their grain runs in
   host C).  With `resident` the frames' planes stay on the device until
   a consumer indexes them; with `host_residual` False the device
-  composes the residual planes in place of the host C composer.
+  composes the residual planes in place of the host C composer.  With
+  `pipe` "postfilter" the C recon makes every frame without its
+  filters, and deblocking, CDEF, loop restoration and film grain run on
+  the device (the reference's `EASYAV1_PIPE=device`).
 
 Where the reference falls back to its pure-Python decoder when the C
 decoder declines a frame (a tile-count mismatch or a corrupt tile), the
@@ -52,10 +55,13 @@ class AV1DecodeError(Exception):
 
 class AV1Backend:
     def __init__(self, track: TrackInfo, device=None, threads: int = 0,
-                 resident: bool = False, host_residual: bool = True):
+                 resident: bool = False, host_residual: bool = True,
+                 pipe: str = "recon"):
         self.track = track
         # None: the C recon; a torch.device: the port's pipe
         self.device = device
+        # the port's pipe on that device (`pipe.PIPES`)
+        self.pipe = pipe
         # the pipe's frames stay on the device until they are indexed
         self.resident = resident
         # the residual planes: the host C composer, or the device's
@@ -180,7 +186,7 @@ class AV1Backend:
                 want_cdf=want_cdf, tpl=tpl, refs=self._ref_u16,
                 threads=self.threads, resident=self.resident,
                 grain=self._film_grain_device,
-                host_residual=self.host_residual)
+                host_residual=self.host_residual, pipe=self.pipe)
         if res is None:
             raise AV1DecodeError("the C decoder declined the frame "
                                  "(tile count or tile data)")

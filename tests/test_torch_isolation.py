@@ -4,6 +4,10 @@
   jax or anything of the JAX package (`easyav1_tpu`), by an `ast` scan
   of every source file (test_torch_pipe.py::test_port_never_imports_jax
   checks `sys.modules` after a decode);
+- no C or CUDA source of the port includes a file outside
+  `easyav1_tpu_torch/`, and the C ABI shim imports only the port's
+  package (test_torch_capi.py runs it with poisoned `easyav1_tpu` and
+  `jax` packages on the path);
 - the port's native C session (`api.native_session`), the yardstick the
   card's smoke run holds the port to, equals the reference's native C
   path (`easyav1_tpu.api.EasyAV1` under EASYAV1_PIPE=native) frame hash
@@ -13,6 +17,7 @@
 """
 
 import ast
+import re
 from pathlib import Path
 
 import numpy as np
@@ -46,8 +51,57 @@ def test_no_import_of_jax_or_the_jax_package(path):
     assert not bad, f"{path} imports {bad}"
 
 
+PORT = REPO / "easyav1_tpu_torch"
+C_SOURCES = sorted(str(p.relative_to(REPO)) for ext in ("c", "h", "cu", "cuh")
+                   for p in PORT.rglob(f"*.{ext}"))
+_INCLUDE = re.compile(r'^\s*#\s*include\s*([<"])([^>"]+)[>"]', re.M)
+
+
+@pytest.mark.parametrize("path", C_SOURCES)
+def test_c_sources_include_only_the_port(path):
+    """Every quoted #include names a file of the port, and no include
+    names the JAX package or jax."""
+    src = REPO / path
+    includes = _INCLUDE.findall(src.read_text())
+    for quote, name in includes:
+        assert "easyav1_tpu/" not in name and "jax" not in name, name
+        if quote == '"':
+            target = (src.parent / name).resolve()
+            assert target.is_file() and PORT in target.parents, \
+                f"{path} includes {name}"
+
+
+def _shim_python(src):
+    """The Python the shim runs through PyRun_SimpleString."""
+    blocks = re.findall(r"PyRun_SimpleString\((.*?)\);", src, re.S)
+    return "".join(lit.encode().decode("unicode_escape") for b in blocks
+                   for lit in re.findall(r'"((?:[^"\\]|\\.)*)"', b))
+
+
+def test_shim_imports_only_the_port():
+    from easyav1_tpu_torch.capi import bridge
+
+    src = (PORT / "capi" / "easyav1_capi.c").read_text()
+    assert re.findall(r'PyImport_ImportModule\("([^"]+)"\)', src) == [
+        "easyav1_tpu_torch.capi.bridge"]
+    code = _shim_python(src)
+    imported = {a.name for n in ast.walk(ast.parse(code))
+                if isinstance(n, ast.Import) for a in n.names}
+    assert imported == {"os", "sys"}
+    # the sys.path search looks for the port's package, and only for it
+    assert re.findall(r"os\.path\.join\(c, '(\w+)'\)", code) == [
+        "easyav1_tpu_torch"]
+    # every bridge function the C side calls by name is there
+    called = set(re.findall(r'g_bridge, "(\w+)"', src)) | set(
+        re.findall(r'call_ll1?\(h, "(\w+)"', src))
+    assert len(called) > 30
+    assert not [n for n in called if not callable(getattr(bridge, n, None))]
+
+
 def test_scan_sees_the_port():
     assert len(SOURCES) > 40
+    assert len(C_SOURCES) > 20
+    assert "easyav1_tpu_torch/capi/easyav1_capi.c" in C_SOURCES
     assert "torch" in set(m.split(".")[0] for m in
                           _imported("easyav1_tpu_torch/api.py"))
 
