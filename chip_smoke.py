@@ -6,8 +6,9 @@ Builds the port's libraries from the checkout at first use, all at
 once: the C decoder (gcc, `easyav1_tpu_torch/native`), the C ABI's
 library and its client executable (gcc, `easyav1_tpu_torch/capi`) and
 the CUDA kernels (nvcc, `easyav1_tpu_torch/csrc/intra_strip.cu`,
-`csrc/inter_mc.cu`, `csrc/frame_hash.cu` and `csrc/itx.cu`, whose ptxas
-reports it prints).  Then:
+`csrc/inter_mc.cu`, `csrc/frame_hash.cu`, `csrc/itx.cu`,
+`csrc/loopfilter.cu` and `csrc/cdef.cu`, whose ptxas reports it prints).
+Then:
 
 1. holds every kernel against its plain torch version on the card,
    exactly: the strip kernel on seeded random unit programs of every
@@ -40,7 +41,18 @@ reports it prints).  Then:
    size, a DC-heavy program and one of 4x4 and 8x8 transforms only, and
    the records of the 1080p intra and 4K 10-bit key frames (also against
    the host C composer), with 20 runs of the 4K 10-bit one bit-equal to
-   the first;
+   the first; the deblocking pass (`csrc/loopfilter.cu`, both
+   directions), the CDEF direction search and the CDEF filter
+   (`csrc/cdef.cu`) against `lf_torch.lf_pass_plain`,
+   `cdef_torch.find_dirs` and `filter_plane` on the card, each on the
+   same inputs, exactly: seeded planes and maps
+   (`unit_programs.random_postfilter_case`: every filter length, hev on
+   and off) at 8, 10 and 12 bits at 1080p 4:2:0 and at an odd size whose
+   CDEF unit grid overhangs, with a stream axis of 8 (a damping a
+   stream) at 8 and 12 bits, the 1080p key frame of
+   bench_av1_intra_lf_1920x1080_8.webm (deblocking on) and the 4K 10-bit
+   key frame, with 20 runs of each kernel on the 1080p key frame
+   bit-equal to the first;
 2. drives the port's main path through `easyav1_tpu_torch.EasyAV1(path,
    device="cuda")`, each stream with the launch counts set to 0 just
    before it and read just after: all 30 frames of
@@ -57,7 +69,10 @@ reports it prints).  Then:
    and the ten hbd_*.webm of tests/data/smoke/ (STREAMS below); every
    frame's hash equal to the port's native C session's, no fallback,
    and the launches as expected: one strip launch a frame, one of 6a an
-   inter frame, one of 6b a frame with OBMC blocks.  Then `decode_resident`
+   inter frame, one of 6b a frame with OBMC blocks, and the LF + CDEF
+   kernels as each frame's header asks (`pf_launches`: two deblocking
+   passes a plane whose deblocking is on, one direction search and a
+   CDEF filter a plane when CDEF is on).  Then `decode_resident`
    on every stream (at most RESIDENT_FRAMES frames of each): its device
    hashes equal `api.frame_hash` of the same frames pulled through the
    API, no plane is downloaded, and the hash kernel launches once a
@@ -79,7 +94,8 @@ reports it prints).  Then:
    postfilter pipe (C recon, then LF, CDEF and LR on the card) decodes
    the 1080p LR + grain stream, bench_av1_intra_lf_1920x1080_8.webm,
    the 4K 10-bit stream and superres_lr_1920x128 hash-equal, with the
-   superres frames, and only those, on the C path; with the fps of one
+   superres frames, and only those, on the C path, no recon kernel
+   launched and the LF + CDEF kernels as the headers ask; with the fps of one
    pass each through the C ABI and the client, and the postfilter
    pipe's stages (phase 3 sets the C ABI's fps beside the Python API's
    and the native C session's);
@@ -88,7 +104,12 @@ reports it prints).  Then:
    and the sequential schedule at 1080p and 4K, 6a on a 1080p and a 4K
    inter frame, 6b on a random OBMC program, their plain versions, the
    strip kernel on a 1080p inter frame's pred units beside its bound,
-   deblocking + CDEF, the stages of the 1080p inter stream's frames, and
+   deblocking + CDEF (the deblocking passes, the direction search and the
+   CDEF filters of the 1080p deblocking key frame and of the 4K 10-bit
+   key frame, each beside its plain version and its bound, and the
+   device operations a frame of both paths on two 1080p inter frames,
+   counted by tools/torch_postfilter_profile.py), the stages of the
+   1080p inter stream's frames, and
    the port's fps beside the native C session's on both 1080p streams;
    the hash kernel on a 1080p frame beside its plain version and its
    byte bound; superres, loop restoration and film grain on 1080p
@@ -114,7 +135,8 @@ reports it prints).  Then:
    (deblocking off, damping 4), no frame twice in a batch, every frame
    through `batched_postfilter_real` (one LF + CDEF pass over a stream
    axis) and `batched_postfilter_loop` (a pass a frame) hash-equal to
-   the native C session's, and `postfilter_torch.MultiStreamPostfilter`
+   the native C session's, with the LF + CDEF kernels' launches as the
+   frames' headers ask, and `postfilter_torch.MultiStreamPostfilter`
    at 8 streams of 1080p luma bit-equal to the same step on the CPU;
    Vorbis synthesis (`audio/vorbis/device.py`) fed a packet at a time
    on tests/data/bench/bench_vorbis_stereo_48k_30s.webm and
@@ -129,13 +151,15 @@ reports it prints).  Then:
    one chunk of 512 blocks and `MultiStreamVorbisSynth.step` beside
    their float32 operation bounds and one `torch.matmul`.
 
-The smoke imports only torch and `easyav1_tpu_torch`, and checks that
-neither jax nor easyav1_tpu was imported.  Every phase raises on
+The smoke imports only torch and `easyav1_tpu_torch` (and
+tools/torch_postfilter_profile.py, which imports no more), and checks
+that neither jax nor easyav1_tpu was imported.  Every phase raises on
 failure.  The line before the last gives the card's name and power
 limit, the last line the device summary.
 """
 
 import ctypes
+import importlib.util
 import json
 import os
 import subprocess
@@ -160,11 +184,13 @@ from easyav1_tpu_torch.parallel import multistream_av1
 from easyav1_tpu_torch.parallel.mesh import MultiStreamVorbisSynth
 from easyav1_tpu_torch.unit_programs import (
     program_frame, random_ibc_program, random_interintra_program,
-    random_mc_program, random_program, random_tx_program, shaped_tx_program)
+    random_mc_program, random_postfilter_case, random_program,
+    random_tx_program, shaped_tx_program)
 from easyav1_tpu_torch.video.av1 import itx_ref
 from easyav1_tpu_torch.video.av1 import tables as T
-from easyav1_tpu_torch.video.av1.recon import (fg_torch, inter_mc, intra_strip,
-                                               itx_torch, lr_torch,
+from easyav1_tpu_torch.video.av1.recon import (cdef_torch, fg_torch, inter_mc,
+                                               intra_strip, itx_torch,
+                                               lf_torch, lr_torch, postfilter,
                                                postfilter_torch, resident,
                                                sr_torch)
 from easyav1_tpu_torch.video.av1.recon.intra_exec import IntraRecon
@@ -177,9 +203,8 @@ from easyav1_tpu_torch.video.av1.recon.inter_exec import InterRecon, ii_masks
 from easyav1_tpu_torch.video.av1.recon.records import (
     F_H, F_RES, F_W, coded_box, compose_residual_host, pack_coeff_rows,
     preprocess_units)
-from easyav1_tpu_torch.video.av1.recon.postfilter import (postfilter_apply,
-                                                          postfilter_maps,
-                                                          upload_maps)
+from easyav1_tpu_torch.video.av1.recon.postfilter import (
+    postfilter_apply, postfilter_apply_plain, postfilter_maps, upload_maps)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 BENCH = os.path.join(REPO, "tests", "data", "bench")
@@ -212,8 +237,14 @@ STRIP_HBD = [(301, 10), (305, 10), (304, 12), (317, 12)]
 COUNTERS = {"intra_strip": intra_strip.strip_exec_frame,
             "inter_mc": inter_mc.mc_launch, "obmc": inter_mc.obmc_launch,
             "frame_hash": resident.frame_hash_device,
-            "itx_compose": itx_torch.compose_residual}
-KERNEL_SOURCES = ("intra_strip", "inter_mc", "frame_hash", "itx")
+            "itx_compose": itx_torch.compose_residual,
+            "deblock": lf_torch.lf_launch,
+            "cdef_dirs": cdef_torch.dirs_launch,
+            "cdef_filter": cdef_torch.filter_launch}
+# the LF + CDEF kernels' counters; the others are the recon kernels'
+PF_KERNELS = ("deblock", "cdef_dirs", "cdef_filter")
+KERNEL_SOURCES = ("intra_strip", "inter_mc", "frame_hash", "itx",
+                  "loopfilter", "cdef")
 # (seed, plane dims, bit depth) of the device composer's random
 # programs: 1080p 4:2:0 and an odd 4:4:4 size (crops at the right and
 # bottom edges), each with every legal (tx_size, tx_type) pair
@@ -865,6 +896,121 @@ def check_itx(dev):
     return err[8], max(err[10], err[12]), frames
 
 
+# (seed, luma size, bit depth, streams) of the LF + CDEF kernels' seeded
+# cases (4:2:0): 1080p and an odd size whose CDEF unit grid overhangs the
+# plane at each bit depth, and a stream axis of 8, a damping a stream
+PF_CASES = [(61, (1080, 1920), 8, 0), (62, (717, 1277), 8, 0),
+            (63, (1080, 1920), 10, 0), (64, (717, 1277), 10, 0),
+            (65, (1080, 1920), 12, 0), (66, (717, 1277), 12, 0),
+            (67, (539, 957), 8, 8), (68, (539, 957), 12, 8)]
+
+
+def pf_stage_errors(planes, maps):
+    """Each LF + CDEF kernel against its plain version on the card, on
+    the same inputs, stage by stage (the kernel's output feeds the next
+    stage): {kernel: max_abs_err}, and the filtered planes."""
+    bd = maps["bd"]
+    err = dict.fromkeys(PF_KERNELS, 0)
+    out = list(planes)
+    for p, m in enumerate(maps["lf"] or ()):
+        if m is None:
+            continue
+        for h, size, lim in ((False, m["sv"], m["lv"]),
+                             (True, m["sh"], m["lh"])):
+            got = lf_torch.lf_launch(out[p], size, lim, bd, h)
+            want = lf_torch.lf_pass_plain(out[p], size, lim, bd, h)
+            err["deblock"] = max(err["deblock"], max_err([got], [want]))
+            out[p] = got
+    cd = maps["cdef"]
+    if cd is not None:
+        uh, uw = cd["filt"].shape[-2:]
+        dirs = cdef_torch.dirs_launch(out[0], uh, uw, cd["cs"], cd["tabs"])
+        err["cdef_dirs"] = max_err(dirs, cdef_torch.find_dirs(
+            out[0], uh, uw, cd["cs"], cd["tabs"]))
+        for p in range(len(out)):
+            args = (*dirs, cd["pri_y" if p == 0 else "pri_uv"],
+                    cd["sec_y" if p == 0 else "sec_uv"], cd["filt"],
+                    *cd["ss"], p, bd, cd["damping"], cd["tabs"])
+            got = cdef_torch.filter_launch(out[p], *args)
+            err["cdef_filter"] = max(err["cdef_filter"], max_err(
+                [got], [cdef_torch.filter_plane(out[p], *args)]))
+            out[p] = got
+    return err, out
+
+
+def pf_key_frame(fr, dev):
+    """A key frame's LF + CDEF inputs on the card: its planes from the
+    strip kernel (wavefront) and its uploaded maps."""
+    planes = fr.run(fr.wavefront)
+    key = fr.key
+    maps = postfilter_maps(key["hdr"], key["seq"],
+                           [tuple(p.shape) for p in planes], *key["maps"],
+                           dev)
+    return {"planes": planes, "maps": maps}
+
+
+def check_postfilter(dev, hbd_key):
+    """Phase 1: the deblocking pass (both directions), the CDEF direction
+    search and the CDEF filter against their plain versions on the card,
+    tolerance 0 (integer arithmetic), stage by stage: the seeded
+    PF_CASES, the 1080p key frame of the deblocking stream and the 4K
+    10-bit key frame `hbd_key`, whose LF + CDEF is also held whole
+    against the plain chain; then 20 runs of each kernel on the 1080p key
+    frame, each bit-equal to the first.  Returns ({kernel: error} at 8
+    bits, the same above 8, the two key frames' inputs)."""
+    errs = {8: dict.fromkeys(PF_KERNELS, 0), 16: dict.fromkeys(PF_KERNELS, 0)}
+    for seed, luma, bd, streams in PF_CASES:
+        h, w = luma
+        case = random_postfilter_case(
+            seed, [luma] + [((h + 1) >> 1, (w + 1) >> 1)] * 2, bd, streams)
+        maps = upload_maps(case["maps"], dev)
+        planes = [torch.from_numpy(p).to(dev) for p in case["planes"]]
+        e, _ = pf_stage_errors(planes, maps)
+        print(f"LF + CDEF seeded {w}x{h} 4:2:0, {bd}-bit, "
+              f"{streams or 1} stream(s): max_abs_err {e}")
+        side = errs[8 if bd == 8 else 16]
+        for k in PF_KERNELS:
+            side[k] = max(side[k], e[k])
+    frames = {"1080p": pf_key_frame(Frame.key_frame(LF_1080, dev), dev),
+              "4K 10-bit": pf_key_frame(hbd_key, dev)}
+    for name, f in frames.items():
+        check(f["maps"]["lf"] is not None and f["maps"]["cdef"] is not None,
+              f"{name} key frame: deblocking and CDEF must both be on")
+        e, out = pf_stage_errors(f["planes"], f["maps"])
+        whole = max_err(out, postfilter_apply_plain(f["planes"], f["maps"]))
+        print(f"LF + CDEF {name} key frame: max_abs_err {e}, the whole "
+              f"chain against the plain chain {whole}")
+        side = errs[16 if "10-bit" in name else 8]
+        for k in PF_KERNELS:
+            side[k] = max(side[k], e[k], whole)
+    f = frames["1080p"]
+    m, bd = f["maps"], f["maps"]["bd"]
+    lf = m["lf"][0]
+    cd = m["cdef"]
+    uh, uw = cd["filt"].shape[-2:]
+    dirs = cdef_torch.dirs_launch(f["planes"][0], uh, uw, cd["cs"],
+                                  cd["tabs"])
+    runs = {"deblock": lambda: [lf_torch.lf_launch(
+                f["planes"][0], lf["sv"], lf["lv"], bd)],
+            "cdef_dirs": lambda: list(cdef_torch.dirs_launch(
+                f["planes"][0], uh, uw, cd["cs"], cd["tabs"])),
+            "cdef_filter": lambda: [cdef_torch.filter_launch(
+                f["planes"][0], *dirs, cd["pri_y"], cd["sec_y"], cd["filt"],
+                *cd["ss"], 0, bd, cd["damping"], cd["tabs"])]}
+    for name, run in runs.items():
+        first = run()
+        for k in range(20):
+            check(all(torch.equal(a, b) for a, b in zip(run(), first)),
+                  f"{name} run {k} on the 1080p key frame differs from the "
+                  "first")
+    print("LF + CDEF 1080p key frame: 20 runs of each kernel bit-equal to "
+          "the first")
+    for side in errs.values():
+        check(not any(side.values()),
+              f"LF + CDEF kernels vs plain: max_abs_err {errs} (tolerance 0)")
+    return errs[8], errs[16], frames
+
+
 HASH_DIMS = [[(1080, 1920), (540, 960), (540, 960)],     # 1080p 4:2:0
              [(67, 131), (34, 66), (34, 66)], [(1, 1)], [(3, 1031)],
              [(135, 241), (135, 241), (135, 241)]]
@@ -1114,6 +1260,69 @@ class ComposerCalls:
         return sum(n > 0 for n in self.calls)
 
 
+def pf_planes_on(hdr, seq, n_planes):
+    """From a frame's header: (deblocking on, by plane; CDEF on).  A
+    plane deblocks when the frame does (a level not 0, no intrabc) and
+    its own level is not 0 (luma: either direction's); CDEF runs when the
+    sequence enables it, the frame is neither lossless nor intrabc and
+    a strength is not 0."""
+    lv, ibc = hdr.lf.level, getattr(hdr, "allow_intrabc", False)
+    frame_lf = any(lv) and not ibc
+    lf = [frame_lf and bool(lv[0] or lv[1] if p == 0 else lv[p + 1])
+          for p in range(n_planes)]
+    cd = hdr.cdef
+    cdef = bool(getattr(seq, "enable_cdef", False) and cd is not None
+                and not hdr.coded_lossless and not ibc
+                and any(max(v, default=0) for v in (
+                    cd.y_pri_strength, cd.y_sec_strength,
+                    cd.uv_pri_strength, cd.uv_sec_strength)))
+    return lf, cdef
+
+
+def pf_launches(lf, cdef, dims):
+    """{deblock, cdef_dirs, cdef_filter} launches of one LF + CDEF pass
+    over planes of `dims` with `pf_planes_on`'s flags: a deblocking pass
+    a direction that has an edge, of each plane that deblocks; when CDEF
+    is on, one search and a filter a plane."""
+    deblock = sum(((pw + 3) // 4 > 1) + ((ph + 3) // 4 > 1)
+                  for on, (ph, pw) in zip(lf, dims) if on)
+    return {"deblock": deblock, "cdef_dirs": int(cdef),
+            "cdef_filter": len(dims) if cdef else 0}
+
+
+class PostfilterCalls:
+    """Within the block, the LF + CDEF launches that the frames whose
+    maps a pipe makes (`postfilter.host_maps`, which every path that
+    filters one frame calls) should cause, from each frame's header
+    (`pf_planes_on`, `pf_launches`), summed in `want`."""
+
+    def __enter__(self):
+        self.want, self.frames = dict.fromkeys(PF_KERNELS, 0), 0
+        self.fn = postfilter.host_maps
+
+        def spy(hdr, seq, dims, *a, **k):
+            for name, n in pf_launches(*pf_planes_on(hdr, seq, len(dims)),
+                                       dims).items():
+                self.want[name] += n
+            self.frames += 1
+            return self.fn(hdr, seq, dims, *a, **k)
+
+        postfilter.host_maps = spy
+        return self
+
+    def __exit__(self, *exc):
+        postfilter.host_maps = self.fn
+
+
+def recon_counts(c):
+    """The recon kernels' counts of `counts()`, in COUNTERS order."""
+    return tuple(v for k, v in c.items() if k not in PF_KERNELS)
+
+
+def pf_counts(c):
+    return {k: c[k] for k in PF_KERNELS}
+
+
 def main_path(streams, host_residual=True):
     """Phase 2: the port's main path, hash-equal to native C, each
     stream with the launch counts set to 0 just before it and read just
@@ -1127,7 +1336,7 @@ def main_path(streams, host_residual=True):
     for name, path, n, want in streams:
         easyav1_tpu_torch.stats.update(frames=0, fallbacks=0)
         reset_counts()
-        with ComposerCalls() as composer:
+        with ComposerCalls() as composer, PostfilterCalls() as pf:
             port, _ = decode_hashes(lambda: easyav1_tpu_torch.EasyAV1(
                 path, device="cuda", host_residual=host_residual))
         c = counts()
@@ -1144,12 +1353,14 @@ def main_path(streams, host_residual=True):
         # a hidden frame is decoded and not shown: the strip kernel's
         # launches count the decoded frames
         itx_want = 0 if host_residual else composer.with_transforms
-        check(stats["frames"] == want[0]
-              and tuple(c.values()) == want + (0, itx_want)
+        check(stats["frames"] == want[0] == pf.frames
+              and recon_counts(c) == want + (0, itx_want)
+              and pf_counts(c) == pf.want
               and len(composer.calls) == (0 if host_residual
                                           else stats["frames"]),
-              f"{name}{mode}: launches {c}, want {want} (strip, 6a, 6b) and "
-              f"{itx_want} device composer launches; composer calls "
+              f"{name}{mode}: launches {c}, want {want} (strip, 6a, 6b), "
+              f"{itx_want} device composer launches and LF + CDEF "
+              f"{pf.want} over {pf.frames} frames; composer calls "
               f"{composer.calls}")
         for k in total:
             total[k] += c[k]
@@ -1461,6 +1672,139 @@ def inter_timings(caps, prog, dev):
     print(f"1080p inter 60 frames: port {60 / port_s:.3f} fps, "
           f"native C session {60 / native_s:.3f} fps (this host)")
     return out
+
+
+# integer operations a unit of work, for the LF + CDEF kernels' operation
+# bounds (estimates from the plain versions' arithmetic): a deblocked
+# (line, edge) (masks, flatness, the longest filter's outputs), an 8x8
+# direction search (8 x 64 partial-sum adds, 8 x 15 squares, weights and
+# sums), a CDEF tap the filter takes (a constrain, its weighted sum, a min
+# and a max) and a CDEF-filtered pixel's rounding and clamp
+LF_EDGE_OPS = 64
+CDEF_UNIT_OPS = 900
+CDEF_TAP_OPS = 10
+CDEF_PIXEL_OPS = 10
+
+
+def pf_bounds(f, var):
+    """(bytes, operations) each LF + CDEF kernel's work on frame `f`
+    (`pf_key_frame`) needs: planes read once and written once, the maps
+    read once (16 bytes a deblocking (line, edge), 4 a CDEF unit map a
+    unit), 8 bytes of output a searched unit; operations by LF_EDGE_OPS
+    a (line, edge) of nonzero size, CDEF_UNIT_OPS a unit, and for a pixel
+    that the filter changes CDEF_PIXEL_OPS plus CDEF_TAP_OPS for each tap
+    it takes: 4 primary ones where the primary strength the filter uses
+    (luma's scaled by the search's variance `var`, [uh, uw]) is not 0, 8
+    secondary ones where the secondary strength is not 0."""
+    m = f["maps"]
+    out = {}
+    nbytes = ops = 0
+    for p, lf in enumerate(m["lf"] or ()):
+        if lf is None:
+            continue
+        px = f["planes"][p].numel()
+        for size in (lf["sv"], lf["sh"]):
+            nbytes += 8 * px + 16 * size.numel()
+            ops += LF_EDGE_OPS * int((size != 0).sum())
+    out["deblock"] = (nbytes, ops)
+    cd = m["cdef"]
+    units = cd["filt"].numel()
+    out["cdef_dirs"] = (f["planes"][0].numel() * 4 + 8 * units,
+                        CDEF_UNIT_OPS * units)
+    nbytes = ops = 0
+    for p, plane in enumerate(f["planes"]):
+        ph, pw = plane.shape[-2:]
+        bh = 8 >> (cd["ss"][1] if p else 0)
+        bw = 8 >> (cd["ss"][0] if p else 0)
+        pri = cd["pri_y" if p == 0 else "pri_uv"]
+        sec = cd["sec_y" if p == 0 else "sec_uv"]
+        if p == 0:
+            # the variance scaling of `cdef_torch.filter_plane`; frexp's
+            # exponent less 1 is floor(log2) of a positive int, exactly
+            i = (torch.frexp(torch.clamp(var >> 6, min=1).double())[1]
+                 - 1).clamp(max=12)
+            pri = torch.where(var != 0, (pri * (4 + i) + 8) >> 4, 0)
+        filt = cd["filt"] != 0
+        taps = filt * (4 * (pri != 0) + 8 * (sec != 0))
+        ops_u = torch.where(taps > 0, CDEF_PIXEL_OPS + CDEF_TAP_OPS * taps, 0)
+        ops_px = ops_u.repeat_interleave(bh, -2).repeat_interleave(bw, -1)
+        nbytes += 8 * plane.numel() + 4 * units * (5 if p == 0 else 4)
+        ops += int(ops_px[..., :ph, :pw].sum())
+    out["cdef_filter"] = (nbytes, ops)
+    return out
+
+
+def lf_cdef_timings(frames, dev):
+    """Phase 3: on the 1080p deblocking key frame and the 4K 10-bit key
+    frame (`check_postfilter`'s), each LF + CDEF kernel's work on the
+    frame (all its deblocking passes; the search; the filters of the three
+    planes), back to back (CUDA events), beside the same work in its
+    plain version and its bound (`pf_bounds`); the whole chain against
+    the plain chain; then the device operations a frame of both chains
+    on an inter frame of the 1080p inter stream (CDEF only) and of the
+    1080p LR + grain stream (deblocking on), under `torch.profiler`
+    (tools/torch_postfilter_profile.py).  Returns {frame: {kernel:
+    timings}} and the operation counts."""
+    out = {}
+    for name, f in frames.items():
+        planes, m = f["planes"], f["maps"]
+        bd, cd = m["bd"], m["cdef"]
+        uh, uw = cd["filt"].shape[-2:]
+        on = [(p, lf) for p, lf in enumerate(m["lf"]) if lf is not None]
+
+        def lf_all(fn):
+            for p, lf in on:
+                fn(fn(planes[p], lf["sv"], lf["lv"], bd), lf["sh"], lf["lh"],
+                   bd, True)
+
+        dirs = cdef_torch.dirs_launch(planes[0], uh, uw, cd["cs"], cd["tabs"])
+
+        def filt_all(fn):
+            for p, plane in enumerate(planes):
+                fn(plane, *dirs, cd["pri_y" if p == 0 else "pri_uv"],
+                   cd["sec_y" if p == 0 else "sec_uv"], cd["filt"], *cd["ss"],
+                   p, bd, cd["damping"], cd["tabs"])
+
+        work = {"deblock": (lambda: lf_all(lf_torch.lf_launch),
+                            lambda: lf_all(lf_torch.lf_pass_plain)),
+                "cdef_dirs": (lambda: cdef_torch.dirs_launch(
+                                  planes[0], uh, uw, cd["cs"], cd["tabs"]),
+                              lambda: cdef_torch.find_dirs(
+                                  planes[0], uh, uw, cd["cs"], cd["tabs"])),
+                "cdef_filter": (lambda: filt_all(cdef_torch.filter_launch),
+                                lambda: filt_all(cdef_torch.filter_plane))}
+        bounds = pf_bounds(f, dirs[1])
+        t = out[name] = {}
+        for k, (kern, plain) in work.items():
+            nbytes, ops = bounds[k]
+            bound, by = _bound(nbytes, ops)
+            t[k] = {"ms": cuda_ms(kern, 20), "plain_ms": cuda_ms(plain, 3),
+                    "bound_ms": bound, "bound_by": by}
+            print(f"{name} key frame {k}: kernel {t[k]['ms']:.4f} ms, plain "
+                  f"version {t[k]['plain_ms']:.3f} ms, bound "
+                  f"{bound * 1e3:.3f} us ({by}: {nbytes / 1e6:.2f} MB, "
+                  f"{ops / 1e6:.1f} M integer operations)")
+        t["chain"] = {"ms": cuda_ms(lambda: postfilter_apply(planes, m), 20),
+                      "plain_ms": cuda_ms(
+                          lambda: postfilter_apply_plain(planes, m), 3)}
+        print(f"{name} key frame LF + CDEF (postfilter_apply, "
+              f"{2 * len(on)} + 1 + {len(planes)} launches): "
+              f"{t['chain']['ms']:.4f} ms, plain chain "
+              f"{t['chain']['plain_ms']:.3f} ms (CUDA events)")
+    spec = importlib.util.spec_from_file_location(
+        "torch_postfilter_profile",
+        os.path.join(REPO, "tools", "torch_postfilter_profile.py"))
+    profile = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(profile)
+    ops = profile.lf_cdef_ops(5, 3)
+    print("LF + CDEF device operations a frame "
+          "(tools/torch_postfilter_profile.py): " + "; ".join(
+              f"{title} (deblocking {'on' if o['lf'] else 'off'}): kernels "
+              f"{o['kernels']['ops']:.1f} in {o['kernels']['wall_ms']:.3f} ms "
+              f"wall, busy share {o['kernels']['busy_ms'] / o['kernels']['wall_ms']:.3f}; "
+              f"plain {o['plain']['ops']:.1f} in {o['plain']['wall_ms']:.3f} "
+              f"ms wall" for title, o in ops.items()))
+    return out, ops
 
 
 def hash_timings(dev):
@@ -1918,7 +2262,7 @@ def check_capi():
         easyav1_tpu_torch.stats.update(frames=0, fallbacks=0)
         reset_counts()
         try:
-            with ComposerCalls() as composer:
+            with ComposerCalls() as composer, PostfilterCalls() as pf:
                 got, wall = abi.decode_hashes(path)
         finally:
             os.environ.pop("EASYAV1_HOST_RESID", None)
@@ -1931,10 +2275,12 @@ def check_capi():
               f"{sum(a != b for a, b in zip(got, native_h))} differ")
         itx_want = composer.with_transforms if device_composer else 0
         check(stats == {"frames": want[0], "fallbacks": 0}
-              and tuple(c.values()) == want + (0, itx_want)
+              and recon_counts(c) == want + (0, itx_want)
+              and pf_counts(c) == pf.want and pf.frames == want[0]
               and (itx_want > 0 or not device_composer),
               f"C ABI {name}{mode}: stats {stats}, launches {c}, want "
-              f"{want} (strip, 6a, 6b) and {itx_want} composer launches")
+              f"{want} (strip, 6a, 6b), {itx_want} composer launches and "
+              f"LF + CDEF {pf.want}")
         if not device_composer:
             fps[name] = n / wall
     kv, hashes = run_client(INTER_1080)
@@ -1959,20 +2305,23 @@ def check_capi():
             native_h = native_hashes(path)
             easyav1_tpu_torch.stats.update(frames=0, fallbacks=0)
             reset_counts()
-            with SuperresFrames() as sr:
+            with SuperresFrames() as sr, PostfilterCalls() as pf:
                 got, wall = abi.decode_hashes(path)
             c, stats = counts(), dict(easyav1_tpu_torch.stats)
             check(got == native_h and len(got) == n,
                   f"postfilter pipe {name}: {len(got)} frames, "
                   f"{sum(a != b for a, b in zip(got, native_h))} differ")
             # the superres frames, and only those, take the C path; the
-            # pipe launches none of the hand kernels
+            # pipe launches none of the recon kernels, and the LF + CDEF
+            # kernels as the other frames' headers ask
             check(stats == {"frames": len(sr.frames),
                             "fallbacks": sum(sr.frames)}
                   and any(sr.frames) == name.startswith("superres")
-                  and not any(c.values()),
+                  and not any(recon_counts(c))
+                  and pf_counts(c) == pf.want
+                  and pf.frames == len(sr.frames) - sum(sr.frames),
                   f"postfilter pipe {name}: stats {stats}, superres "
-                  f"{sr.frames}, launches {c}")
+                  f"{sr.frames}, launches {c}, LF + CDEF wanted {pf.want}")
             fps[f"postfilter {name}"] = n / wall
             print(f"C ABI postfilter pipe (EASYAV1_PIPE=device) {name}: "
                   f"{len(got)} frames hash-equal in {wall:.3f} s "
@@ -2056,9 +2405,26 @@ def check_multistream(dev):
     n = 0
     for b, batch in enumerate(batches):
         frames = [f for _, _, f in batch]
-        outs = {"batched": multistream_av1.batched_postfilter_real(frames,
-                                                                   dev),
-                "loop": multistream_av1.batched_postfilter_loop(frames, dev)}
+        dims = [tuple(p.shape) for p in frames[0][2]]
+        flags = [pf_planes_on(hdr, seq, len(dims))
+                 for seq, hdr, *_ in frames]
+        # the stacked pass filters a plane when any slot's does
+        want_pf = {"batched": pf_launches(
+            [any(f[0][p] for f in flags) for p in range(len(dims))],
+            any(f[1] for f in flags), dims), "loop": dict.fromkeys(
+                PF_KERNELS, 0)}
+        for f in flags:
+            for k, v in pf_launches(*f, dims).items():
+                want_pf["loop"][k] += v
+        outs = {}
+        for how, run in (("batched", multistream_av1.batched_postfilter_real),
+                         ("loop", multistream_av1.batched_postfilter_loop)):
+            reset_counts()
+            outs[how] = run(frames, dev)
+            c = counts()
+            check(pf_counts(c) == want_pf[how] and not any(recon_counts(c)),
+                  f"multi-stream batch {b} ({how}): launches {c}, want "
+                  f"{want_pf[how]}")
         for s, (path, i, f) in enumerate(batch):
             want = native_hashes(path)[i]
             for how, out in outs.items():
@@ -2071,7 +2437,8 @@ def check_multistream(dev):
     print(f"multi-stream: {len(batches)} batches of {MS_SLOTS} 1080p key "
           f"frames (deblocking on in half the slots, CDEF damping 6 and "
           f"4), {n} frames hash-equal to the native C session, batched "
-          f"and slot by slot")
+          f"and slot by slot; LF + CDEF launches of the last batch as its "
+          f"headers ask: {want_pf}")
     step = postfilter_torch.MultiStreamPostfilter(MS_SLOTS, 1080, 1920,
                                                   device=dev)
     inputs = step.example_inputs()
@@ -2144,7 +2511,8 @@ def multistream_timings(batches, dev):
 def map_bytes(maps):
     """Bytes of the deblocking and CDEF maps of `postfilter_maps` or
     `stack_maps`, CDEF's constant tables left out."""
-    tensors = [t for m in maps["lf"] or () for t in m.values()] + [
+    tensors = [t for m in maps["lf"] or () if m is not None
+               for t in m.values()] + [
         t for k, t in (maps["cdef"] or {}).items()
         if isinstance(t, torch.Tensor) and k != "tabs"]
     return sum(t.numel() * t.element_size() for t in tensors)
@@ -2371,6 +2739,7 @@ def main():
     err_hbd = max(err_hbd, err_strip16)
     err_hash = check_hash(dev)
     err_itx, err_itx16, itx_frames = check_itx(dev)
+    err_pf, err_pf16, pf_frames = check_postfilter(dev, hbd_key)
     stage_inputs = check_torch_stages(dev)
     # the main path: the 8-bit streams, then the 10- and 12-bit ones (the
     # kernels' uint16 instantiations); each stream's counts are set to 0
@@ -2393,6 +2762,7 @@ def main():
     # the C ABI: its main pipe, the client executable, its postfilter pipe
     c_abi = check_capi()
     t = timings(frames, dev)
+    tpf, pf_ops = lf_cdef_timings(pf_frames, dev)
     ti = inter_timings(caps, prog, dev)
     th = hash_timings(dev)
     stage_timings(stage_inputs, dev)
@@ -2404,7 +2774,8 @@ def main():
     vorbis = check_vorbis(dev)
     print(json.dumps({"multistream": multistream_timings(batches, dev),
                       "vorbis": vorbis_timings(vorbis, dev),
-                      "c_abi": c_abi}))
+                      "c_abi": c_abi, "lf_cdef": tpf,
+                      "lf_cdef_ops": pf_ops}))
     strip = dict(t["1080p"], ms=t["1080p"]["wavefront_ms"],
                  plain_ms=t["plain_ms"])
     mc = dict(ti["1080p"], plain_ms=ti["mc_plain_ms"])
@@ -2432,7 +2803,16 @@ def main():
                      composer["itx_compose"], err_itx, titx["1080p"]),
         kernel_entry("itx_compose_hbd", "itx.cu", "itx_jax.py:31",
                      composer16["itx_compose"], err_itx16,
-                     titx["4K 10-bit"])]}))
+                     titx["4K 10-bit"])] + [
+        kernel_entry(name + suffix, source, replaces, lc[name], err[name],
+                     tpf[frame][name])
+        for suffix, lc, err, frame in (("", launches, err_pf, "1080p"),
+                                       ("_hbd", launches16, err_pf16,
+                                        "4K 10-bit"))
+        for name, source, replaces in (
+            ("deblock", "loopfilter.cu", "lf_jax.py:27"),
+            ("cdef_dirs", "cdef.cu", "cdef_jax.py:245"),
+            ("cdef_filter", "cdef.cu", "cdef_jax.py:107"))]}))
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.split(".")[0] == "easyav1_tpu")
     check(not leaked, f"imported {leaked}")

@@ -1,6 +1,8 @@
 """Seeded random pred-unit programs: inputs that hold the strip executor
 against its references (`exec_ref.UnitExecutor`, the Pallas kernel, its
-own plain version).
+own plain version).  Also seeded transform programs for the residual
+composer, MC programs for the MC kernels, and deblocking and CDEF inputs
+for the postfilter kernels (`random_postfilter_case`).
 
 A program is one plane's units in the bridge's [N, 24] record layout: a
 base layer of 16x16 DC tiles, then random units of every class (DC, V,
@@ -486,3 +488,64 @@ def random_tx_program(seed: int, dims, bd: int = 8,
             "coeffs": (np.concatenate(coeffs) if coeffs
                        else np.zeros(0)).astype(np.int32),
             "dims": [tuple(d) for d in dims], "bd": bd}
+
+
+LF_SIZES = (0, 4, 6, 8, 14)
+
+
+def random_postfilter_case(seed: int, dims, bd: int = 8, streams: int = 0,
+                           ss=(1, 1)) -> Dict:
+    """Seeded int32 planes of `dims` ((h, w) each, luma first) and their
+    deblocking and CDEF maps in `postfilter.host_maps`'s layout (every
+    plane's deblocking on), with a leading stream axis of `streams` when
+    it is not 0 (CDEF's damping then one a stream, [S, 1, 1]):
+    {"planes", "maps"}.  Each 8x8 block of a plane is a level plus noise
+    of a random amplitude (0, 1, 3 or 16 steps of 2^(bd-8)) and steps
+    between blocks of random heights, so that flat sides, steps and rough
+    texture all occur and every filter length (size 4, 6, 8, 14 or 0 at
+    random a (line, edge)) filters, with `hev` on and off (thresh at
+    random below 4 steps)."""
+    rng = np.random.default_rng(seed)
+    lead = (streams,) if streams else ()
+    step = 1 << (bd - 8)
+    top = (1 << bd) - 1
+    planes = []
+    for ph, pw in dims:
+        bh, bw = (ph + 7) // 8, (pw + 7) // 8
+
+        def up(u):
+            return np.repeat(np.repeat(u, 8, -2), 8, -1)[..., :ph, :pw]
+
+        amp = up(rng.choice([0, 1, 3, 16], (*lead, bh, bw)) * step)
+        lift = up(rng.choice([0, 0, 2, 6, 40], (*lead, bh, bw)) * step)
+        level = rng.integers(32 * step, top - 96 * step, (*lead, 1, 1))
+        noise = rng.integers(0, amp + 1)
+        planes.append(np.clip(level + lift + noise, 0, top).astype(np.int32))
+
+    def lim(rows, ne):
+        return np.stack([rng.integers(1, 10 * step, (*lead, rows, ne)),
+                         rng.integers(5 * step, 60 * step, (*lead, rows, ne)),
+                         rng.integers(0, 4 * step, (*lead, rows, ne))],
+                        axis=-3).astype(np.int32)
+
+    lf = []
+    for ph, pw in dims:
+        nev, neh = max((pw + 3) // 4 - 1, 0), max((ph + 3) // 4 - 1, 0)
+        lf.append({"sv": rng.choice(LF_SIZES, (*lead, ph, nev)).astype(
+                       np.int32),
+                   "lv": lim(ph, nev),
+                   "sh": rng.choice(LF_SIZES, (*lead, pw, neh)).astype(
+                       np.int32),
+                   "lh": lim(pw, neh)})
+    cs = bd - 8
+    u = (*lead, (dims[0][0] + 7) // 8, (dims[0][1] + 7) // 8)
+    damping = rng.integers(3, 7, (streams, 1, 1) if streams else ()) + cs
+    cdef = {"pri_y": (rng.integers(0, 16, u) << cs).astype(np.int32),
+            "sec_y": (rng.choice([0, 1, 2, 4], u) << cs).astype(np.int32),
+            "pri_uv": (rng.integers(0, 16, u) << cs).astype(np.int32),
+            "sec_uv": (rng.choice([0, 1, 2, 4], u) << cs).astype(np.int32),
+            "filt": rng.integers(0, 2, u).astype(np.int32), "cs": cs,
+            "damping": (damping.astype(np.int32) if streams
+                        else int(damping)),
+            "ss": tuple(ss)}
+    return {"planes": planes, "maps": {"bd": bd, "lf": lf, "cdef": cdef}}

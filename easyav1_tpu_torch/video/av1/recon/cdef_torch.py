@@ -7,14 +7,23 @@ plane read CDEF_VERY_LARGE); the JAX package searches on the host in
 that case.  The filter gathers each tap by the per-pixel direction.
 Leading dimensions are independent planes (a stream axis): a tap never
 reads across them.
+
+`dirs_launch` and `filter_launch` are what the postfilter calls: on CUDA
+tensors each launches its kernel of `csrc/cdef.cu` (built by nvcc at
+first use) once, or raises; on CPU tensors they take `find_dirs` and
+`filter_plane`.  `dirs_launch.launches` and `filter_launch.launches`
+count the kernels' launches.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
+
+from easyav1_tpu_torch.video.av1.recon.lf_torch import on_card
 
 # the tables below are the port's copies of cdef_jax.py:19-68
 CDEF_VERY_LARGE = 0x4000
@@ -194,3 +203,95 @@ def filter_plane(plane: torch.Tensor, dir_u: torch.Tensor,
     val = torch.minimum(torch.maximum(val, mn), mx)
     active = (filt != 0) & ((pri != 0) | (sec != 0))
     return torch.where(active, val, px)
+
+
+def _lib():
+    from easyav1_tpu_torch import _build
+    lib = _build.load("cdef")
+    if lib.cdef_dirs_launch.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.cdef_dirs_launch.restype = ci
+        lib.cdef_dirs_launch.argtypes = [vp, vp, vp] + [ci] * 6 + [vp]
+        lib.cdef_filter_launch.restype = ci
+        lib.cdef_filter_launch.argtypes = [vp] * 8 + [ci] * 10 + [vp]
+    return lib
+
+
+def dirs_launch(luma: torch.Tensor, uh: int, uw: int, coeff_shift: int,
+                tabs: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dir, var) int32 [..., uh, uw] of `find_dirs` for int32 luma
+    planes [..., ph, pw] (at most one leading axis).  CUDA tensors launch
+    `cdef_dirs_kernel` once, or raise; CPU tensors take `find_dirs`."""
+    if luma.dtype != torch.int32 or not 2 <= luma.dim() <= 3 \
+            or uh < 1 or uw < 1:
+        raise ValueError(f"want int32 luma planes [..., ph, pw] and a unit "
+                         f"grid, got {luma.dtype} {tuple(luma.shape)}, "
+                         f"{uh}x{uw}")
+    if not on_card(luma, [luma]):
+        return find_dirs(luma, uh, uw, coeff_shift, tabs)
+    *lead, ph, pw = luma.shape
+    dirs = torch.empty((*lead, uh, uw), dtype=torch.int32,
+                       device=luma.device)
+    var = torch.empty_like(dirs)
+    with torch.cuda.device(luma.device):
+        rc = _lib().cdef_dirs_launch(
+            luma.data_ptr(), dirs.data_ptr(), var.data_ptr(),
+            lead[0] if lead else 1, ph, pw, uh, uw, coeff_shift,
+            torch.cuda.current_stream(luma.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"cdef_dirs launch failed: cudaError {rc}")
+    dirs_launch.launches += 1
+    return dirs, var
+
+
+dirs_launch.launches = 0
+
+
+def filter_launch(plane: torch.Tensor, dir_u: torch.Tensor,
+                  var_u: torch.Tensor, pri_u: torch.Tensor,
+                  sec_u: torch.Tensor, filt_u: torch.Tensor, ssx: int,
+                  ssy: int, p: int, bd: int, damping,
+                  tabs: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """`filter_plane` of int32 planes [..., ph, pw] (at most one leading
+    axis) with int32 unit maps [..., uh, uw] covering them; `damping` an
+    int or an int32 tensor of one value a stream ([S, 1, 1]).  CUDA
+    tensors launch `cdef_filter_kernel` once into a new plane, or raise;
+    CPU tensors take `filter_plane`."""
+    *lead, ph, pw = plane.shape
+    units = (dir_u, var_u, pri_u, sec_u, filt_u)
+    bh, bw = 8 >> (ssy if p else 0), 8 >> (ssx if p else 0)
+    uh, uw = dir_u.shape[-2:] if dir_u.dim() >= 2 else (0, 0)
+    if plane.dtype != torch.int32 or not 2 <= plane.dim() <= 3 \
+            or any(u.dtype != torch.int32 or tuple(u.shape) != (*lead, uh, uw)
+                   for u in units) \
+            or uh * bh < ph or uw * bw < pw:
+        raise ValueError(
+            f"want int32 planes [..., ph, pw] and int32 unit maps covering "
+            f"them, got {plane.dtype} {tuple(plane.shape)} and "
+            f"{[(u.dtype, tuple(u.shape)) for u in units]}")
+    damp = damping if isinstance(damping, torch.Tensor) else None
+    if damp is not None and (damp.dtype != torch.int32
+                             or damp.numel() != (lead[0] if lead else 1)):
+        raise ValueError(f"want one int32 damping a stream, got "
+                         f"{damp.dtype} {tuple(damp.shape)}")
+    if not on_card(plane, [plane, *units]
+                    + ([damp] if damp is not None else [])):
+        return filter_plane(plane, dir_u, var_u, pri_u, sec_u, filt_u, ssx,
+                            ssy, p, bd, damping, tabs)
+    out = torch.empty_like(plane)
+    with torch.cuda.device(plane.device):
+        rc = _lib().cdef_filter_launch(
+            plane.data_ptr(), out.data_ptr(),
+            *(u.data_ptr() for u in units),
+            None if damp is None else damp.data_ptr(),
+            0 if damp is not None else int(damping), lead[0] if lead else 1,
+            ph, pw, uh, uw, ssx, ssy, p, bd,
+            torch.cuda.current_stream(plane.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"cdef_filter launch failed: cudaError {rc}")
+    filter_launch.launches += 1
+    return out
+
+
+filter_launch.launches = 0

@@ -7,9 +7,17 @@ pre-pass pixels.  Edges sit on the 4 px grid, so each tap is a strided
 view of the padded plane.  The horizontal pass runs on the transposed
 plane.  Leading dimensions are independent planes (a stream axis): the
 pass filters them all with the same operations as one plane.
+
+`lf_launch` is the pass the postfilter calls: on CUDA tensors it launches
+the hand-written kernel `csrc/loopfilter.cu` (built by nvcc at first
+use), which reads the rows of the plane directly in both directions, or
+raises; on CPU tensors it takes `pass_body`.  `lf_launch.launches`
+counts the kernel's launches.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -143,3 +151,79 @@ def pass_body(buf: torch.Tensor, size_m: torch.Tensor, limit: torch.Tensor,
         cur = lanes(off)
         cur.copy_(torch.where(wm, v, cur))
     return B[..., PAD:PAD + W]
+
+
+def lf_pass_plain(buf: torch.Tensor, size_m: torch.Tensor, lim: torch.Tensor,
+                  bd: int, horizontal: bool = False) -> torch.Tensor:
+    """`lf_launch`'s pass as plain torch ops on any device: `pass_body`,
+    on the transposed plane for the horizontal edges."""
+    if horizontal:
+        return pass_body(buf.transpose(-1, -2), size_m, *lim.unbind(-3),
+                         bd).transpose(-1, -2)
+    return pass_body(buf, size_m, *lim.unbind(-3), bd)
+
+
+def on_card(t: torch.Tensor, tensors) -> bool:
+    """The LF and CDEF wrappers' dispatch: False for a CPU tensor `t`
+    (the plain version runs); True for a CUDA one, with `tensors` all
+    contiguous on its device (the kernel launches); others raise."""
+    dev = t.device
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if any(x.device != dev or not x.is_contiguous() for x in tensors):
+        raise ValueError(f"want contiguous tensors on {dev}")
+    return True
+
+
+def _lib():
+    from easyav1_tpu_torch import _build
+    lib = _build.load("loopfilter")
+    fn = lib.lf_pass_launch
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+    return lib
+
+
+def lf_launch(buf: torch.Tensor, size_m: torch.Tensor, lim: torch.Tensor,
+              bd: int, horizontal: bool = False) -> torch.Tensor:
+    """One deblocking pass over [..., H, W] int32 planes: the vertical
+    edges, or with `horizontal` the horizontal ones.  size_m [..., R, ne]
+    and lim [..., 3, R, ne] (limit, blimit, thresh) int32, one map row a
+    pixel row (R = H) or, horizontal, a pixel column (R = W); ne the
+    pass's edges.  CUDA tensors (contiguous) launch `csrc/loopfilter.cu`
+    once into a new plane, or raise; CPU tensors take `lf_pass_plain`.
+    The input is never written."""
+    *lead, H, W = buf.shape
+    R, along = (W, H) if horizontal else (H, W)
+    ne = (along + 3) // 4 - 1
+    if buf.dtype != torch.int32 or size_m.dtype != torch.int32 \
+            or lim.dtype != torch.int32 or not 2 <= buf.dim() <= 3 \
+            or tuple(size_m.shape) != (*lead, R, max(ne, 0)) \
+            or tuple(lim.shape) != (*lead, 3, R, max(ne, 0)):
+        raise ValueError(
+            f"want int32 planes [..., H, W] with maps [..., {R}, ne] and "
+            f"[..., 3, {R}, ne], got {buf.dtype} {tuple(buf.shape)}, "
+            f"{size_m.dtype} {tuple(size_m.shape)}, {lim.dtype} "
+            f"{tuple(lim.shape)}")
+    if not on_card(buf, [buf, size_m, lim]):
+        return lf_pass_plain(buf, size_m, lim, bd, horizontal)
+    if ne <= 0:
+        return buf
+    out = torch.empty_like(buf)
+    with torch.cuda.device(buf.device):
+        rc = _lib().lf_pass_launch(
+            buf.data_ptr(), out.data_ptr(), size_m.data_ptr(),
+            lim.data_ptr(), lead[0] if lead else 1, H, W, ne,
+            int(horizontal), bd,
+            torch.cuda.current_stream(buf.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"lf_pass launch failed: cudaError {rc}")
+    lf_launch.launches += 1
+    return out
+
+
+lf_launch.launches = 0

@@ -10,6 +10,10 @@ Planes and maps may carry a leading stream axis: `stack_maps` uploads
 the host maps of frames of one geometry from different streams stacked,
 and `postfilter_apply` filters them all in one launch sequence (the
 counterpart of `multistream_av1.batched_postfilter_real`'s vmap).
+
+On CUDA planes `postfilter_apply` runs the hand kernels (deblocking,
+`csrc/loopfilter.cu`; CDEF, `csrc/cdef.cu`); `postfilter_apply_plain`
+is the same chain in plain torch ops, which CPU planes take.
 """
 
 from __future__ import annotations
@@ -62,35 +66,31 @@ def _cell_maps(g, plane, vertical: bool):
     return np.where(active, s, 0).astype(np.int32)
 
 
-def _lf_size_maps(hdr, bd, dims, num_planes, grids_for):
-    """Host: per-plane (size_v, size_h) cell grids plus PER-EDGE
-    (limit, blimit, thresh) maps (levels vary per block on inter
-    frames via ref/mode deltas, segments and delta_lf; the C decoder
-    exports the resolved per-cell level grids)."""
-    sizes_v, sizes_h = [], []
-    lims_v, lims_h = [], []
-    lf_on = not (hdr.lf.level[0] == 0 and hdr.lf.level[1] == 0
-                 and hdr.lf.level[2] == 0 and hdr.lf.level[3] == 0) \
-        and not getattr(hdr, "allow_intrabc", False)
+def _lf_size_maps(hdr, bd, dims, grids_for):
+    """Host, for a frame whose deblocking is on: for each plane None
+    when its level is 0 (it is not deblocked), else its (size_v, size_h)
+    cell grids plus PER-EDGE (limit, blimit, thresh) maps (levels vary
+    per block on inter frames via ref/mode deltas, segments and
+    delta_lf; the C decoder exports the resolved per-cell level
+    grids)."""
+    level = hdr.lf.level
+    plane_on = (bool(level[0] or level[1]), bool(level[2]), bool(level[3]))
     # 64-entry (limit, blimit, thresh) LUTs over the level
     luts = np.zeros((3, 64), np.int32)
     for lv in range(1, 64):
         luts[:, lv] = _limits(lv, hdr.lf.sharpness, bd)
-    for p in range(num_planes):
-        ph, pw = dims[p]
-        g = grids_for(p, (ph, pw)) if lf_on else None
-        plane_on = lf_on
-        if p == 0 and hdr.lf.level[0] == 0 and hdr.lf.level[1] == 0:
-            plane_on = False
-        if p == 1 and hdr.lf.level[2] == 0:
-            plane_on = False
-        if p == 2 and hdr.lf.level[3] == 0:
-            plane_on = False
+    out = []
+    for p, (ph, pw) in enumerate(dims):
+        if not plane_on[p]:
+            out.append(None)
+            continue
+        g = grids_for(p, (ph, pw))
+        sizes, lims = [], []
         for pass_ in (0, 1):
             vertical = pass_ == 0
-            ne = (g["gw"] - 1 if vertical else g["gh"] - 1) if g else 0
+            ne = g["gw"] - 1 if vertical else g["gh"] - 1
             rows = (ph + 3) // 4 if vertical else (pw + 3) // 4
-            if not plane_on or ne <= 0 or g is None:
+            if ne <= 0:
                 size = np.zeros((rows, max(ne, 0)), np.int32)
                 lim = np.zeros((3, rows, max(ne, 0)), np.int32)
             else:
@@ -120,9 +120,10 @@ def _lf_size_maps(hdr, bd, dims, num_planes, grids_for):
                     size[(vis_w + 3) >> 2:, :] = 0
                     ecap = (vis_h >> 2) - 1
                     size[:, max(ecap, 0):] = 0
-            (sizes_v if vertical else sizes_h).append(size)
-            (lims_v if vertical else lims_h).append(lim)
-    return sizes_v, sizes_h, lims_v, lims_h
+            sizes.append(size)
+            lims.append(lim)
+        out.append((*sizes, *lims))
+    return out
 
 
 def unit_maps(skip_grid: np.ndarray, cdef_idx_grid: np.ndarray,
@@ -153,7 +154,8 @@ def postfilter_maps(hdr, seq, dims, grids_for, skip_grid: np.ndarray,
     `device`, for planes of shapes `dims`.  grids_for(plane, shape) ->
     lf_ref-style grids; skip_grid / cdef_idx_grid: the mi skip grid and
     the per-64x64 CDEF indices.  "lf" / "cdef" are None when the filter
-    is off."""
+    is off, and an entry of "lf" is None for a plane that is not
+    deblocked."""
     return upload_maps(host_maps(hdr, seq, dims, grids_for, skip_grid,
                                  cdef_idx_grid), device)
 
@@ -163,20 +165,20 @@ def host_maps(hdr, seq, dims, grids_for, skip_grid: np.ndarray,
     """`postfilter_maps` before the upload: the same dict of numpy
     arrays, without CDEF's "tabs"."""
     bd = seq.color.bitdepth
-    num_planes = len(dims)
     maps = {"bd": bd, "lf": None, "cdef": None}
     lf_on = not (hdr.lf.level[0] == 0 and hdr.lf.level[1] == 0
                  and hdr.lf.level[2] == 0 and hdr.lf.level[3] == 0) \
         and not getattr(hdr, "allow_intrabc", False)
     if lf_on:
-        sizes_v, sizes_h, lims_v, lims_h = _lf_size_maps(
-            hdr, bd, dims, num_planes, grids_for)
+        # a plane whose level is 0 is not deblocked and has no maps
         maps["lf"] = [
-            {"sv": np.repeat(sizes_v[p], 4, axis=0)[:ph],
-             "lv": np.repeat(lims_v[p], 4, axis=1)[:, :ph],
-             "sh": np.repeat(sizes_h[p], 4, axis=0)[:pw],
-             "lh": np.repeat(lims_h[p], 4, axis=1)[:, :pw]}
-            for p, (ph, pw) in enumerate(dims)]
+            None if cells is None else
+            {"sv": np.repeat(cells[0], 4, axis=0)[:ph],
+             "sh": np.repeat(cells[1], 4, axis=0)[:pw],
+             "lv": np.repeat(cells[2], 4, axis=1)[:, :ph],
+             "lh": np.repeat(cells[3], 4, axis=1)[:, :pw]}
+            for cells, (ph, pw) in zip(
+                _lf_size_maps(hdr, bd, dims, grids_for), dims)]
 
     cd = hdr.cdef
     cdef_on = (getattr(seq, "enable_cdef", False) and cd is not None
@@ -215,7 +217,7 @@ def upload_maps(maps: Dict, device: torch.device) -> Dict:
 
     out = dict(maps)
     if maps["lf"] is not None:
-        out["lf"] = [up(m) for m in maps["lf"]]
+        out["lf"] = [None if m is None else up(m) for m in maps["lf"]]
     if maps["cdef"] is not None:
         out["cdef"] = up(maps["cdef"]) | {"tabs": convert.tables(device)}
     return out
@@ -230,8 +232,8 @@ def stack_maps(maps: List[Dict], dims, device: torch.device) -> Dict:
     zero maps there, which filter nothing: size 0 deblocks no edge,
     strength 0 leaves a pixel as it is (the JAX package pads the
     zero-width edge maps of an LF-off stream,
-    `multistream_av1.py:298-307`).  "lf" or "cdef" is None only when it
-    is None for every frame."""
+    `multistream_av1.py:298-307`).  "lf" or "cdef", or a plane's entry of
+    "lf", is None only when it is None for every frame."""
     bds = {m["bd"] for m in maps}
     if len(bds) != 1:
         raise ValueError(f"one batch, one bit depth: {sorted(bds)}")
@@ -250,12 +252,15 @@ def stack_maps(maps: List[Dict], dims, device: torch.device) -> Dict:
     if any(m["lf"] is not None for m in maps):
         out["lf"] = []
         for p, (ph, pw) in enumerate(dims):
+            per = [None if m["lf"] is None else m["lf"][p] for m in maps]
+            if all(d is None for d in per):
+                out["lf"].append(None)      # no stream deblocks plane p
+                continue
             nev, neh = max((pw + 3) // 4 - 1, 0), max((ph + 3) // 4 - 1, 0)
             shapes = {"sv": (ph, nev), "lv": (3, ph, nev), "sh": (pw, neh),
                       "lh": (3, pw, neh)}
-            out["lf"].append({k: stack([None if m["lf"] is None
-                                        else m["lf"][p][k] for m in maps],
-                                       shape)
+            out["lf"].append({k: stack([None if d is None else d[k]
+                                        for d in per], shape)
                               for k, shape in shapes.items()})
     on = [m["cdef"] for m in maps if m["cdef"] is not None]
     if on:
@@ -274,28 +279,44 @@ def stack_maps(maps: List[Dict], dims, device: torch.device) -> Dict:
 def postfilter_apply(planes: List[torch.Tensor], maps: Dict,
                      want_deblocked: bool = False):
     """The device half: LF + CDEF over mi-aligned int32 planes with the
-    maps of `postfilter_maps`; returns the filtered planes, or with
+    maps of `postfilter_maps`, through the kernels' wrappers (on CUDA
+    planes two `lf_torch.lf_launch` a plane whose deblocking is on, one
+    `cdef_torch.dirs_launch` and one `cdef_torch.filter_launch` a plane
+    when CDEF is on); returns the filtered planes, or with
     `want_deblocked` (planes, deblocked): also the planes after LF and
     before CDEF, which loop restoration reads above and below a stripe
     (`postfilter_fused.py:206`, `:256-257`).  No function here writes a
     plane it was given, so with LF off the snapshot is the input planes
     and with CDEF off it is the result.  Planes [S, ph, pw] with the
     maps of `stack_maps` filter S frames at once."""
+    return _apply(planes, maps, want_deblocked, lf_torch.lf_launch,
+                  cdef_torch.dirs_launch, cdef_torch.filter_launch)
+
+
+def postfilter_apply_plain(planes: List[torch.Tensor], maps: Dict,
+                           want_deblocked: bool = False):
+    """`postfilter_apply` as plain torch ops on any device (`lf_pass_plain`,
+    `find_dirs`, `filter_plane`): what the kernels are held to on the
+    card, and what `postfilter_apply` runs on CPU planes."""
+    return _apply(planes, maps, want_deblocked, lf_torch.lf_pass_plain,
+                  cdef_torch.find_dirs, cdef_torch.filter_plane)
+
+
+def _apply(planes, maps, want_deblocked, lf_pass, find_dirs, filter_plane):
     bd = maps["bd"]
     out = list(planes)
     if maps["lf"] is not None:
         for p, m in enumerate(maps["lf"]):
-            buf = lf_torch.pass_body(out[p], m["sv"], *m["lv"].unbind(-3),
-                                     bd)
-            out[p] = lf_torch.pass_body(buf.transpose(-1, -2), m["sh"],
-                                        *m["lh"].unbind(-3),
-                                        bd).transpose(-1, -2)
+            if m is None:
+                continue
+            buf = lf_pass(out[p], m["sv"], m["lv"], bd)
+            out[p] = lf_pass(buf, m["sh"], m["lh"], bd, horizontal=True)
     deblocked = list(out)
     m = maps["cdef"]
     if m is not None:
         uh, uw = m["filt"].shape[-2:]
-        dirs, var = cdef_torch.find_dirs(out[0], uh, uw, m["cs"], m["tabs"])
-        out = [cdef_torch.filter_plane(
+        dirs, var = find_dirs(out[0], uh, uw, m["cs"], m["tabs"])
+        out = [filter_plane(
             out[p], dirs, var, m["pri_y" if p == 0 else "pri_uv"],
             m["sec_y" if p == 0 else "sec_uv"], m["filt"], *m["ss"], p, bd,
             m["damping"], m["tabs"]) for p in range(len(out))]

@@ -4,8 +4,10 @@ stream-axis batch: the counterparts of `postfilter_jax.make_postfilter`
 
 The JAX package vmaps the step over streams and shards the stream axis
 over a mesh's `dp` axis.  One card has no mesh: the port's step takes a
-leading stream axis directly (`lf_torch.pass_body`,
-`cdef_torch.filter_plane`), so S streams run on the launches of one.
+leading stream axis directly (`lf_torch.lf_launch`,
+`cdef_torch.filter_launch`: on the card two launches of
+`csrc/loopfilter.cu` and one of `csrc/cdef.cu` a step), so S streams
+run on the launches of one.
 """
 
 from __future__ import annotations
@@ -29,12 +31,18 @@ def make_postfilter(H: int, W: int, bd: int = 8, damping: int = 5):
 
     def fn(plane, size_v, size_h, limit, blimit, thresh,
            dir_u, var_u, pri_u, sec_u, filt_u):
-        x = lf_torch.pass_body(plane, size_v, limit, blimit, thresh, bd)
-        x = lf_torch.pass_body(x.transpose(-1, -2), size_h, limit, blimit,
-                               thresh, bd).transpose(-1, -2)
-        return cdef_torch.filter_plane(x, dir_u, var_u, pri_u, sec_u, filt_u,
-                                       0, 0, 0, bd, damping,
-                                       convert.tables(plane.device))
+        # the shared limits as the per-edge maps the deblocking pass takes
+        def lims(size):
+            return torch.stack([torch.as_tensor(t, dtype=torch.int32,
+                                                device=size.device)
+                                .expand_as(size)
+                                for t in (limit, blimit, thresh)], -3)
+
+        x = lf_torch.lf_launch(plane, size_v, lims(size_v), bd)
+        x = lf_torch.lf_launch(x, size_h, lims(size_h), bd, horizontal=True)
+        return cdef_torch.filter_launch(x, dir_u, var_u, pri_u, sec_u,
+                                        filt_u, 0, 0, 0, bd, damping,
+                                        convert.tables(plane.device))
 
     rng = np.random.default_rng(0)
     nev = (W + 3) // 4 - 1

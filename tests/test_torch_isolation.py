@@ -106,6 +106,29 @@ def test_scan_sees_the_port():
                           _imported("easyav1_tpu_torch/api.py"))
 
 
+# the deblocking and CDEF kernels and the modules that launch them
+POSTFILTER_KERNELS = ["easyav1_tpu_torch/csrc/loopfilter.cu",
+                      "easyav1_tpu_torch/csrc/cdef.cu"]
+POSTFILTER_MODULES = ["easyav1_tpu_torch/video/av1/recon/lf_torch.py",
+                      "easyav1_tpu_torch/video/av1/recon/cdef_torch.py",
+                      "easyav1_tpu_torch/video/av1/recon/postfilter.py",
+                      "easyav1_tpu_torch/video/av1/recon/postfilter_torch.py"]
+
+
+@pytest.mark.parametrize("path", POSTFILTER_KERNELS + POSTFILTER_MODULES)
+def test_scans_cover_the_postfilter_kernels(path):
+    if path.endswith(".cu"):
+        assert path in C_SOURCES
+        test_c_sources_include_only_the_port(path)
+        # a kernel source of the port includes the CUDA runtime and C
+        # headers, and nothing else
+        assert {n for _q, n in _INCLUDE.findall((REPO / path).read_text())} \
+            <= {"cuda_runtime.h", "stdint.h"}
+    else:
+        assert path in SOURCES
+        test_no_import_of_jax_or_the_jax_package(path)
+
+
 def _gop4():
     from test_torch_pipe import _gop4_fixture
     return _gop4_fixture()

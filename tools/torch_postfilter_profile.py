@@ -1,6 +1,6 @@
-"""Profile the port's postfilter stages (eager torch ops) on one NVIDIA
-GPU: how many device operations one frame's stage launches, their summed
-device time, and how much of the stage's wall time the device is busy.
+"""Profile the port's postfilter stages on one NVIDIA GPU: how many
+device operations one frame's stage launches, their summed device time,
+and how much of the stage's wall time the device is busy.
 
     python3 tools/torch_postfilter_profile.py [FRAME] [REPEATS]
     python3 tools/torch_postfilter_profile.py --batch [SLOTS] [REPEATS]
@@ -10,10 +10,13 @@ off, CDEF on) through the port up to inter frame FRAME (default 5) and
 tests/data/bench/bench_av1_lr_grain_1920x1080_8.webm (deblocking, loop
 restoration and film grain on) up to inter frame min(FRAME, 7), keeps
 what enters each stage of that frame, then runs each stage REPEATS times
-(default 5) under `torch.profiler`: deblocking + CDEF
-(`postfilter_apply`) on both, loop restoration (`lr_torch`, host maps
-included) and film grain (`fg_torch`, the per-frame host random values
-included, the templates made before) on the second.  It prints, per
+(default 5) under `torch.profiler`: deblocking + CDEF on both, as the
+pipe runs it (`postfilter_apply`: the hand kernels of
+csrc/loopfilter.cu and csrc/cdef.cu) and as plain torch ops
+(`postfilter_apply_plain`, the eager chain those kernels replaced),
+loop restoration (`lr_torch`, host maps included) and film grain
+(`fg_torch`, the per-frame host random values included, the templates
+made before) on the second.  It prints, per
 frame and stage: the device operations (kernels and copies), their
 summed device time, the time the device is busy (the union of their
 intervals), the stage's wall time on the host clock with the device
@@ -30,6 +33,9 @@ decoded (`multistream_av1.decode_frames_unfiltered_native`): the stacked
 pass (`postfilter_apply` over a stream axis, as
 `multistream_av1.batched_postfilter_real` runs it) against a pass a slot
 (as `batched_postfilter_loop` runs them), both on uploaded inputs.
+
+`lf_cdef_ops(index, reps)` is the LF + CDEF half of the default mode as a
+function: chip_smoke.py reads the operation counts from it.
 """
 
 import os
@@ -46,7 +52,7 @@ import easyav1_tpu_torch  # noqa: E402
 from easyav1_tpu_torch.native import pipe  # noqa: E402
 from easyav1_tpu_torch.parallel import multistream_av1  # noqa: E402
 from easyav1_tpu_torch.video.av1.recon.postfilter import (  # noqa: E402
-    postfilter_apply, postfilter_maps, upload_maps)
+    postfilter_apply, postfilter_apply_plain, postfilter_maps, upload_maps)
 
 BENCH = os.path.join(REPO, "tests", "data", "bench")
 STREAM = os.path.join(BENCH, "bench_av1_inter_1920x1080_60.webm")
@@ -119,7 +125,9 @@ def wall_ms(fn, reps):
 
 def profile(name, stage, reps):
     """Run `stage` under the profiler and print its counts (see the
-    module docstring); "per frame" is per call of `stage`."""
+    module docstring); "per frame" is per call of `stage`.  Returns
+    {"ops", "device_ms", "busy_ms", "wall_ms"} a frame (the wall time
+    without the profiler)."""
     wall_ms(stage, 3)                       # warm up
     plain = wall_ms(stage, reps)
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -155,6 +163,8 @@ def profile(name, stage, reps):
     for op, (n, us) in sorted(by_name.items(),
                                 key=lambda kv: -kv[1][1])[:10]:
         print(f"  {n / reps:7.1f} {us / reps / 1e3:9.4f}  {op[:90]}")
+    return {"ops": ops, "device_ms": total_ms, "busy_ms": busy_ms,
+            "wall_ms": plain}
 
 
 def profile_batch(slots, reps):
@@ -177,6 +187,33 @@ def profile_batch(slots, reps):
                      for k in range(len(frames))], reps)
 
 
+# the streams of the default mode: title, path, and which inter frame
+STREAMS = (("1080p inter stream", STREAM, None),
+           ("1080p LR + grain stream", LR_GRAIN, 7))
+
+
+def lf_cdef_ops(index=5, reps=5):
+    """LF + CDEF of inter frame `index` of each stream of STREAMS (at most
+    the last inter frame), through the hand kernels and as plain torch
+    ops, under the profiler: {title: {"kernels": profile's dict,
+    "plain": profile's dict, "lf": deblocking on?}}."""
+    out = {}
+    for title, path, last in STREAMS:
+        k = min(index, last or index)
+        c = capture(path, k)
+        planes, maps = c["planes"], c["maps"]
+        out[title] = {
+            "lf": maps["lf"] is not None,
+            "kernels": profile(f"{title}, inter frame {k}: LF + CDEF, hand "
+                               "kernels (postfilter_apply)",
+                               lambda: postfilter_apply(planes, maps), reps),
+            "plain": profile(f"{title}, inter frame {k}: LF + CDEF, plain "
+                             "torch ops (postfilter_apply_plain)",
+                             lambda: postfilter_apply_plain(planes, maps),
+                             reps)}
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("torch_postfilter_profile: no CUDA device")
@@ -189,18 +226,15 @@ def main():
         return
     index = int(sys.argv[1]) if len(sys.argv) > 1 else 5
     reps = int(sys.argv[2]) if len(sys.argv) > 2 else 5
-    for title, path, k in (("1080p inter stream", STREAM, index),
-                           ("1080p LR + grain stream", LR_GRAIN,
-                            min(index, 7))):
+    lf_cdef_ops(index, reps)
+    for title, path, last in STREAMS:
+        k = min(index, last or index)
         c = capture(path, k)
-        planes, maps = c["planes"], c["maps"]
         print(f"{title}, inter frame {k}: deblocking "
-              f"{'on' if maps['lf'] is not None else 'off'}, CDEF "
-              f"{'on' if maps['cdef'] is not None else 'off'}, loop "
+              f"{'on' if c['maps']['lf'] is not None else 'off'}, CDEF "
+              f"{'on' if c['maps']['cdef'] is not None else 'off'}, loop "
               f"restoration {'on' if 'lr' in c else 'off'}, film grain "
               f"{'on' if 'grain' in c else 'off'}")
-        profile(f"{title}: postfilter_apply (LF + CDEF)",
-                lambda: postfilter_apply(planes, maps), reps)
         if "lr" in c:
             lr, lr_planes, debl = c["lr"]
             profile(f"{title}: loop restoration",
