@@ -41,15 +41,17 @@ Then:
    size, a DC-heavy program and one of 4x4 and 8x8 transforms only, and
    the records of the 1080p intra and 4K 10-bit key frames (also against
    the host C composer), with 20 runs of the 4K 10-bit one bit-equal to
-   the first; the deblocking pass (`csrc/loopfilter.cu`, both
-   directions), the CDEF direction search and the CDEF filter
-   (`csrc/cdef.cu`) against `lf_torch.lf_pass_plain`,
-   `cdef_torch.find_dirs` and `filter_plane` on the card, each on the
-   same inputs, exactly: seeded planes and maps
-   (`unit_programs.random_postfilter_case`: every filter length, hev on
-   and off) at 8, 10 and 12 bits at 1080p 4:2:0 and at an odd size whose
-   CDEF unit grid overhangs, with a stream axis of 8 (a damping a
-   stream) at 8 and 12 bits, the 1080p key frame of
+   the first; the deblocking of a frame (`csrc/loopfilter.cu`, every
+   plane, both directions, one launch), the CDEF direction search and
+   the CDEF filter (`csrc/cdef.cu`, every plane, one launch) against
+   `lf_torch.lf_frame_plain`, `cdef_torch.find_dirs` and
+   `filter_planes` on the card, each on the same inputs, exactly: seeded
+   planes and maps (`unit_programs.random_postfilter_case`: every
+   filter length, hev on and off, overlapping edges) at 8, 10 and 12
+   bits at 1080p 4:2:0 and at an odd size whose CDEF unit grid
+   overhangs, with the decoder's cell maps and with one map row a pixel
+   line, with a stream axis of 8 (a damping a stream) at 8 and 12 bits,
+   the 1080p key frame of
    bench_av1_intra_lf_1920x1080_8.webm (deblocking on) and the 4K 10-bit
    key frame, with 20 runs of each kernel on the 1080p key frame
    bit-equal to the first;
@@ -70,9 +72,9 @@ Then:
    frame's hash equal to the port's native C session's, no fallback,
    and the launches as expected: one strip launch a frame, one of 6a an
    inter frame, one of 6b a frame with OBMC blocks, and the LF + CDEF
-   kernels as each frame's header asks (`pf_launches`: two deblocking
-   passes a plane whose deblocking is on, one direction search and a
-   CDEF filter a plane when CDEF is on).  Then `decode_resident`
+   kernels as each frame's header asks (`pf_launches`: one deblocking
+   launch when a plane deblocks, one direction search and one CDEF
+   filter when CDEF is on).  Then `decode_resident`
    on every stream (at most RESIDENT_FRAMES frames of each): its device
    hashes equal `api.frame_hash` of the same frames pulled through the
    API, no plane is downloaded, and the hash kernel launches once a
@@ -104,11 +106,14 @@ Then:
    and the sequential schedule at 1080p and 4K, 6a on a 1080p and a 4K
    inter frame, 6b on a random OBMC program, their plain versions, the
    strip kernel on a 1080p inter frame's pred units beside its bound,
-   deblocking + CDEF (the deblocking passes, the direction search and the
-   CDEF filters of the 1080p deblocking key frame and of the 4K 10-bit
-   key frame, each beside its plain version and its bound, and the
-   device operations a frame of both paths on two 1080p inter frames,
-   counted by tools/torch_postfilter_profile.py), the stages of the
+   deblocking + CDEF (the deblocking, the direction search and the CDEF
+   filter of the 1080p deblocking key frame and of the 4K 10-bit key
+   frame, each beside its plain version and its bound, the deblocking
+   and the filter beside their first designs, tools/torch_loopfilter_first.cu
+   and tools/torch_cdef_first.cu, on the same frames, and the device
+   operations a frame of both paths and the host maps' split on two
+   1080p inter frames, by tools/torch_postfilter_profile.py), the stages
+   of the
    1080p inter stream's frames, and
    the port's fps beside the native C session's on both 1080p streams;
    the hash kernel on a 1080p frame beside its plain version and its
@@ -282,15 +287,18 @@ def build():
     """The C decoder, the C ABI's library and client, and the four
     kernel libraries, built at once; prints ptxas's reports."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2 + len(KERNEL_SOURCES)) as ex:
+    with ThreadPoolExecutor(2 + len(KERNEL_SOURCES) + len(YARDSTICKS)) \
+            as ex:
         jobs = [ex.submit(native._load), ex.submit(capi.build)] + [
-            ex.submit(_build.build, name) for name in KERNEL_SOURCES]
+            ex.submit(_build.build, name) for name in KERNEL_SOURCES] + [
+            ex.submit(build_yardstick, name) for name in YARDSTICKS]
         for j in jobs:
             j.result()
-    print(f"build (gcc twice and {len(KERNEL_SOURCES)} nvcc at once) "
-          f"{time.perf_counter() - t0:.3f} s")
-    for name in KERNEL_SOURCES:
-        _build.load(name)
+    print(f"build (gcc twice and {len(KERNEL_SOURCES) + len(YARDSTICKS)} "
+          f"nvcc at once) {time.perf_counter() - t0:.3f} s")
+    for name in KERNEL_SOURCES + tuple(YARDSTICKS):
+        if name in KERNEL_SOURCES:
+            _build.load(name)
         for line in (_build.BUILD / f"{name}.log").read_text().splitlines():
             if "spill" in line or "ptxas info" in line and (
                     "Used" in line or "bytes" in line
@@ -896,13 +904,31 @@ def check_itx(dev):
     return err[8], max(err[10], err[12]), frames
 
 
-# (seed, luma size, bit depth, streams) of the LF + CDEF kernels' seeded
-# cases (4:2:0): 1080p and an odd size whose CDEF unit grid overhangs the
-# plane at each bit depth, and a stream axis of 8, a damping a stream
-PF_CASES = [(61, (1080, 1920), 8, 0), (62, (717, 1277), 8, 0),
-            (63, (1080, 1920), 10, 0), (64, (717, 1277), 10, 0),
-            (65, (1080, 1920), 12, 0), (66, (717, 1277), 12, 0),
-            (67, (539, 957), 8, 8), (68, (539, 957), 12, 8)]
+# (seed, luma size, bit depth, streams, map-row shift, clamp) of the LF +
+# CDEF kernels' seeded cases (4:2:0; every filter length at random a map
+# cell and edge, so neighbouring edges' writes overlap): 1080p and an odd
+# size whose CDEF unit grid overhangs the plane at each bit depth, with
+# the decoder's cell maps (shift 2), a stream axis of 8, a damping a
+# stream, maps of one row a pixel line (shift 0, make_postfilter's), and
+# at each bit depth CDEF's upper clamp binding beside the plane's border,
+# where taps read CDEF_VERY_LARGE (`random_postfilter_case`'s `clamp`)
+PF_CASES = [(61, (1080, 1920), 8, 0, 2, False),
+            (62, (717, 1277), 8, 0, 2, False),
+            (63, (1080, 1920), 10, 0, 2, False),
+            (64, (717, 1277), 10, 0, 2, False),
+            (65, (1080, 1920), 12, 0, 2, False),
+            (66, (717, 1277), 12, 0, 2, False),
+            (67, (539, 957), 8, 8, 2, False), (68, (539, 957), 12, 8, 2, False),
+            (69, (717, 1277), 10, 0, 0, False),
+            (70, (539, 957), 8, 8, 0, False),
+            (71, (539, 957), 8, 8, 2, True), (72, (717, 1277), 10, 0, 2, True),
+            (73, (1080, 1920), 12, 0, 2, True)]
+
+
+def cdef_args(planes, dirs, cd):
+    """The arguments of `cdef_torch.filter_launch` after the planes."""
+    return (*dirs, *cdef_torch.strengths(cd, len(planes)), cd["filt"],
+            *cd["ss"], cd["cs"] + 8, cd["damping"], cd["tabs"])
 
 
 def pf_stage_errors(planes, maps):
@@ -912,29 +938,22 @@ def pf_stage_errors(planes, maps):
     bd = maps["bd"]
     err = dict.fromkeys(PF_KERNELS, 0)
     out = list(planes)
-    for p, m in enumerate(maps["lf"] or ()):
-        if m is None:
-            continue
-        for h, size, lim in ((False, m["sv"], m["lv"]),
-                             (True, m["sh"], m["lh"])):
-            got = lf_torch.lf_launch(out[p], size, lim, bd, h)
-            want = lf_torch.lf_pass_plain(out[p], size, lim, bd, h)
-            err["deblock"] = max(err["deblock"], max_err([got], [want]))
-            out[p] = got
+    if maps["lf"] is not None:
+        got = lf_torch.lf_launch(out, maps["lf"], bd)
+        err["deblock"] = max_err(got, lf_torch.lf_frame_plain(
+            out, maps["lf"], bd))
+        out = got
     cd = maps["cdef"]
     if cd is not None:
         uh, uw = cd["filt"].shape[-2:]
         dirs = cdef_torch.dirs_launch(out[0], uh, uw, cd["cs"], cd["tabs"])
         err["cdef_dirs"] = max_err(dirs, cdef_torch.find_dirs(
             out[0], uh, uw, cd["cs"], cd["tabs"]))
-        for p in range(len(out)):
-            args = (*dirs, cd["pri_y" if p == 0 else "pri_uv"],
-                    cd["sec_y" if p == 0 else "sec_uv"], cd["filt"],
-                    *cd["ss"], p, bd, cd["damping"], cd["tabs"])
-            got = cdef_torch.filter_launch(out[p], *args)
-            err["cdef_filter"] = max(err["cdef_filter"], max_err(
-                [got], [cdef_torch.filter_plane(out[p], *args)]))
-            out[p] = got
+        args = cdef_args(out, dirs, cd)
+        got = cdef_torch.filter_launch(out, *args)
+        err["cdef_filter"] = max_err(got, cdef_torch.filter_planes(
+            out, *args))
+        out = got
     return err, out
 
 
@@ -950,8 +969,8 @@ def pf_key_frame(fr, dev):
 
 
 def check_postfilter(dev, hbd_key):
-    """Phase 1: the deblocking pass (both directions), the CDEF direction
-    search and the CDEF filter against their plain versions on the card,
+    """Phase 1: the deblocking (every plane, both directions), the CDEF
+    direction search and the CDEF filter (every plane) against their plain versions on the card,
     tolerance 0 (integer arithmetic), stage by stage: the seeded
     PF_CASES, the 1080p key frame of the deblocking stream and the 4K
     10-bit key frame `hbd_key`, whose LF + CDEF is also held whole
@@ -959,15 +978,19 @@ def check_postfilter(dev, hbd_key):
     frame, each bit-equal to the first.  Returns ({kernel: error} at 8
     bits, the same above 8, the two key frames' inputs)."""
     errs = {8: dict.fromkeys(PF_KERNELS, 0), 16: dict.fromkeys(PF_KERNELS, 0)}
-    for seed, luma, bd, streams in PF_CASES:
+    for seed, luma, bd, streams, shift, clamp in PF_CASES:
         h, w = luma
         case = random_postfilter_case(
-            seed, [luma] + [((h + 1) >> 1, (w + 1) >> 1)] * 2, bd, streams)
+            seed, [luma] + [((h + 1) >> 1, (w + 1) >> 1)] * 2, bd, streams,
+            map_shift=shift, clamp=clamp)
         maps = upload_maps(case["maps"], dev)
         planes = [torch.from_numpy(p).to(dev) for p in case["planes"]]
         e, _ = pf_stage_errors(planes, maps)
         print(f"LF + CDEF seeded {w}x{h} 4:2:0, {bd}-bit, "
-              f"{streams or 1} stream(s): max_abs_err {e}")
+              f"{streams or 1} stream(s), "
+              f"{'cell maps' if shift else 'a map row a line'}"
+              f"{', the border clamp' if clamp else ''}: "
+              f"max_abs_err {e}")
         side = errs[8 if bd == 8 else 16]
         for k in PF_KERNELS:
             side[k] = max(side[k], e[k])
@@ -985,18 +1008,15 @@ def check_postfilter(dev, hbd_key):
             side[k] = max(side[k], e[k], whole)
     f = frames["1080p"]
     m, bd = f["maps"], f["maps"]["bd"]
-    lf = m["lf"][0]
     cd = m["cdef"]
     uh, uw = cd["filt"].shape[-2:]
     dirs = cdef_torch.dirs_launch(f["planes"][0], uh, uw, cd["cs"],
                                   cd["tabs"])
-    runs = {"deblock": lambda: [lf_torch.lf_launch(
-                f["planes"][0], lf["sv"], lf["lv"], bd)],
+    runs = {"deblock": lambda: lf_torch.lf_launch(f["planes"], m["lf"], bd),
             "cdef_dirs": lambda: list(cdef_torch.dirs_launch(
                 f["planes"][0], uh, uw, cd["cs"], cd["tabs"])),
-            "cdef_filter": lambda: [cdef_torch.filter_launch(
-                f["planes"][0], *dirs, cd["pri_y"], cd["sec_y"], cd["filt"],
-                *cd["ss"], 0, bd, cd["damping"], cd["tabs"])]}
+            "cdef_filter": lambda: cdef_torch.filter_launch(
+                f["planes"], *cdef_args(f["planes"], dirs, cd))}
     for name, run in runs.items():
         first = run()
         for k in range(20):
@@ -1281,13 +1301,11 @@ def pf_planes_on(hdr, seq, n_planes):
 
 def pf_launches(lf, cdef, dims):
     """{deblock, cdef_dirs, cdef_filter} launches of one LF + CDEF pass
-    over planes of `dims` with `pf_planes_on`'s flags: a deblocking pass
-    a direction that has an edge, of each plane that deblocks; when CDEF
-    is on, one search and a filter a plane."""
-    deblock = sum(((pw + 3) // 4 > 1) + ((ph + 3) // 4 > 1)
-                  for on, (ph, pw) in zip(lf, dims) if on)
-    return {"deblock": deblock, "cdef_dirs": int(cdef),
-            "cdef_filter": len(dims) if cdef else 0}
+    over planes of `dims` with `pf_planes_on`'s flags: one deblocking
+    launch when a plane deblocks (every plane, both directions); when
+    CDEF is on, one search and one filter (every plane)."""
+    return {"deblock": int(any(lf)), "cdef_dirs": int(cdef),
+            "cdef_filter": int(cdef)}
 
 
 class PostfilterCalls:
@@ -1689,8 +1707,10 @@ CDEF_PIXEL_OPS = 10
 def pf_bounds(f, var):
     """(bytes, operations) each LF + CDEF kernel's work on frame `f`
     (`pf_key_frame`) needs: planes read once and written once, the maps
-    read once (16 bytes a deblocking (line, edge), 4 a CDEF unit map a
-    unit), 8 bytes of output a searched unit; operations by LF_EDGE_OPS
+    read once (the deblocking maps as the decoder makes them: a uint8
+    size and level a 4x4-cell row and edge, the LUT; 4 bytes a CDEF unit
+    map a unit: direction, variance, flag, and two strengths a plane
+    kind), 8 bytes of output a searched unit; operations by LF_EDGE_OPS
     a (line, edge) of nonzero size, CDEF_UNIT_OPS a unit, and for a pixel
     that the filter changes CDEF_PIXEL_OPS plus CDEF_TAP_OPS for each tap
     it takes: 4 primary ones where the primary strength the filter uses
@@ -1702,16 +1722,24 @@ def pf_bounds(f, var):
     for p, lf in enumerate(m["lf"] or ()):
         if lf is None:
             continue
-        px = f["planes"][p].numel()
-        for size in (lf["sv"], lf["sh"]):
-            nbytes += 8 * px + 16 * size.numel()
-            ops += LF_EDGE_OPS * int((size != 0).sum())
+        x = f["planes"][p]
+        nbytes += 8 * x.numel() + sum(lf[k].numel() * lf[k].element_size()
+                                      for k in ("sv", "lv", "sh", "lh",
+                                                "lut"))
+        for size, lines in ((lf["sv"], x.shape[-2]), (lf["sh"], x.shape[-1])):
+            rows = size.shape[-2]
+            shift = lf_torch.map_shift(rows, lines)
+            # the lines each map row covers
+            n = torch.clamp(lines - (torch.arange(rows, device=size.device)
+                                     << shift), max=1 << shift)
+            ops += LF_EDGE_OPS * int(((size != 0).sum(-1) * n).sum())
     out["deblock"] = (nbytes, ops)
     cd = m["cdef"]
     units = cd["filt"].numel()
     out["cdef_dirs"] = (f["planes"][0].numel() * 4 + 8 * units,
                         CDEF_UNIT_OPS * units)
-    nbytes = ops = 0
+    nbytes = 4 * units * (3 + 2 * min(len(f["planes"]), 2))
+    ops = 0
     for p, plane in enumerate(f["planes"]):
         ph, pw = plane.shape[-2:]
         bh = 8 >> (cd["ss"][1] if p else 0)
@@ -1728,68 +1756,226 @@ def pf_bounds(f, var):
         taps = filt * (4 * (pri != 0) + 8 * (sec != 0))
         ops_u = torch.where(taps > 0, CDEF_PIXEL_OPS + CDEF_TAP_OPS * taps, 0)
         ops_px = ops_u.repeat_interleave(bh, -2).repeat_interleave(bw, -1)
-        nbytes += 8 * plane.numel() + 4 * units * (5 if p == 0 else 4)
+        nbytes += 8 * plane.numel()
         ops += int(ops_px[..., :ph, :pw].sum())
     out["cdef_filter"] = (nbytes, ops)
+    return out
+
+
+# The yardsticks the deblocking and the CDEF filter are timed against:
+# their first designs, and the two-launch deblocking on cell maps that the
+# one-launch tile was raced against.  Library name "<source>_<tag>": its
+# source, and the extern names a build suffixes with "_<tag>" so that it
+# stands beside the shipped kernels in one process
+YARDSTICKS = {
+    "loopfilter_first": ("tools/torch_loopfilter_first.cu",
+                         ("lf_pass_kernel", "lf_pass_launch")),
+    "cdef_first": ("tools/torch_cdef_first.cu",
+                   ("cdef_dirs_kernel", "cdef_filter_kernel",
+                    "cdef_dirs_launch", "cdef_filter_launch", "kDirs",
+                    "kUvDir")),
+    "loopfilter_twopass": ("tools/torch_loopfilter_twopass.cu",
+                           ("lf_frame_kernel", "lf_frame_launch"))}
+
+
+def build_yardstick(name):
+    """`_build/<name>.so` from YARDSTICKS[name] (nvcc)."""
+    src, names = YARDSTICKS[name]
+    tag = name.split("_", 1)[1]
+    so = _build.BUILD / f"{name}.so"
+    _build.BUILD.mkdir(exist_ok=True)
+    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
+                        *(f"-D{n}={n}_{tag}" for n in names), "-o", str(so),
+                        os.path.join(REPO, src)], capture_output=True,
+                       text=True)
+    check(r.returncode == 0, f"nvcc failed on {src}:\n{r.stdout}{r.stderr}")
+    (_build.BUILD / f"{name}.log").write_text(r.stdout + r.stderr)
+    return so
+
+
+def load_yardsticks():
+    """The yardsticks' libraries, their launch functions typed."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lf = ctypes.CDLL(str(_build.BUILD / "loopfilter_first.so"))
+    lf.lf_pass_launch_first.restype = ci
+    lf.lf_pass_launch_first.argtypes = [vp] * 4 + [ci] * 6 + [vp]
+    cd = ctypes.CDLL(str(_build.BUILD / "cdef_first.so"))
+    cd.cdef_filter_launch_first.restype = ci
+    cd.cdef_filter_launch_first.argtypes = [vp] * 8 + [ci] * 10 + [vp]
+    tp = ctypes.CDLL(str(_build.BUILD / "loopfilter_twopass.so"))
+    tp.lf_twopass_launch.restype = ci
+    tp.lf_twopass_launch.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(ci),
+                                     ci, ci, ci, vp]
+    return {"deblock": lf, "cdef_filter": cd, "twopass": tp}
+
+
+def twopass_deblock(lib, planes, lf_maps, bd):
+    """The two-launch deblocking on cell maps
+    (tools/torch_loopfilter_twopass.cu), through a scratch plane a plane,
+    the same work as `lf_torch.lf_launch`."""
+    out = list(planes)
+    ptrs, dims, keep = [], [], []
+    for p, (x, m) in enumerate(zip(planes, lf_maps)):
+        if m is None:
+            continue
+        tmp, out[p] = torch.empty_like(x), torch.empty_like(x)
+        keep.append(tmp)
+        ptrs += [x.data_ptr(), tmp.data_ptr(), out[p].data_ptr()] + [
+            m[k].data_ptr() for k in ("sv", "lv", "sh", "lh", "lut")]
+        dims += [*x.shape[-2:], lf_torch.map_shift(m["sv"].shape[-2],
+                                                   x.shape[-2]),
+                 lf_torch.map_shift(m["sh"].shape[-2], x.shape[-1])]
+    lead = planes[0].shape[:-2]
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    check(lib.lf_twopass_launch(
+        (vp * len(ptrs))(*ptrs), (ci * len(dims))(*dims), len(dims) // 4,
+        lead[0] if lead else 1, bd,
+        torch.cuda.current_stream().cuda_stream) == 0,
+        "the two-launch deblocking")
+    return out
+
+
+def first_maps(planes, lf_maps):
+    """The per-line int32 maps the first deblocking design reads, made on
+    the card from the cell maps (`lf_torch.expand_maps`): for each plane
+    None or ((size, lim) vertical, (size, lim) horizontal)."""
+    return [None if m is None else tuple(
+        tuple(t.contiguous() for t in lf_torch.expand_maps(
+            m[s], m[lv], m["lut"], x.shape[-2 if s == "sv" else -1]))
+        for s, lv in (("sv", "lv"), ("sh", "lh")))
+        for x, m in zip(planes, lf_maps)]
+
+
+def first_deblock(lib, planes, rows, bd):
+    """The first design: two passes a plane that deblocks, each a launch
+    of `lf_pass_kernel` on per-line maps `rows` (`first_maps`)."""
+    out = list(planes)
+    stream = torch.cuda.current_stream().cuda_stream
+    for p, r in enumerate(rows):
+        if r is None:
+            continue
+        *lead, H, W = out[p].shape
+        for horizontal, (size, lim) in enumerate(r):
+            ne = size.shape[-1]
+            if ne < 1:
+                continue
+            dst = torch.empty_like(out[p])
+            check(lib.lf_pass_launch_first(
+                out[p].data_ptr(), dst.data_ptr(), size.data_ptr(),
+                lim.data_ptr(), lead[0] if lead else 1, H, W, ne,
+                horizontal, bd, stream) == 0, "the first deblocking design")
+            out[p] = dst
+    return out
+
+
+def first_cdef(lib, planes, dirs, cd, bd):
+    """The first design: a launch of `cdef_filter_kernel` a plane."""
+    pri, sec = cdef_torch.strengths(cd, len(planes))
+    damp = cd["damping"]
+    stream = torch.cuda.current_stream().cuda_stream
+    out = []
+    for p, x in enumerate(planes):
+        *lead, ph, pw = x.shape
+        dst = torch.empty_like(x)
+        check(lib.cdef_filter_launch_first(
+            x.data_ptr(), dst.data_ptr(), dirs[0].data_ptr(),
+            dirs[1].data_ptr(), pri[p].data_ptr(), sec[p].data_ptr(),
+            cd["filt"].data_ptr(),
+            damp.data_ptr() if isinstance(damp, torch.Tensor) else None,
+            0 if isinstance(damp, torch.Tensor) else int(damp),
+            lead[0] if lead else 1, ph, pw, *cd["filt"].shape[-2:],
+            *cd["ss"], p, bd, stream) == 0, "the first CDEF design")
+        out.append(dst)
     return out
 
 
 def lf_cdef_timings(frames, dev):
     """Phase 3: on the 1080p deblocking key frame and the 4K 10-bit key
     frame (`check_postfilter`'s), each LF + CDEF kernel's work on the
-    frame (all its deblocking passes; the search; the filters of the three
-    planes), back to back (CUDA events), beside the same work in its
-    plain version and its bound (`pf_bounds`); the whole chain against
-    the plain chain; then the device operations a frame of both chains
-    on an inter frame of the 1080p inter stream (CDEF only) and of the
-    1080p LR + grain stream (deblocking on), under `torch.profiler`
-    (tools/torch_postfilter_profile.py).  Returns {frame: {kernel:
-    timings}} and the operation counts."""
+    frame (the deblocking of every plane; the search; the filter of the
+    three planes), back to back (CUDA events), beside the same work in
+    its plain version, in its first design (YARDSTICKS: six deblocking
+    passes on per-line maps expanded on the card before the timing, three
+    filter launches; each held against the shipped kernel's output
+    first), for the deblocking also in the two-launch design on cell
+    maps the one-launch tile was raced against (held the same way), and
+    its bound (`pf_bounds`); the whole chain against the plain
+    chain; then the device operations a frame of both chains and the
+    host maps' split on an inter frame of the 1080p inter stream (CDEF
+    only) and of the 1080p LR + grain stream (deblocking on), under
+    `torch.profiler` (tools/torch_postfilter_profile.py).  Returns
+    {frame: {kernel: timings}} and the profile's results."""
+    first = load_yardsticks()
     out = {}
     for name, f in frames.items():
         planes, m = f["planes"], f["maps"]
         bd, cd = m["bd"], m["cdef"]
         uh, uw = cd["filt"].shape[-2:]
-        on = [(p, lf) for p, lf in enumerate(m["lf"]) if lf is not None]
-
-        def lf_all(fn):
-            for p, lf in on:
-                fn(fn(planes[p], lf["sv"], lf["lv"], bd), lf["sh"], lf["lh"],
-                   bd, True)
-
         dirs = cdef_torch.dirs_launch(planes[0], uh, uw, cd["cs"], cd["tabs"])
-
-        def filt_all(fn):
-            for p, plane in enumerate(planes):
-                fn(plane, *dirs, cd["pri_y" if p == 0 else "pri_uv"],
-                   cd["sec_y" if p == 0 else "sec_uv"], cd["filt"], *cd["ss"],
-                   p, bd, cd["damping"], cd["tabs"])
-
-        work = {"deblock": (lambda: lf_all(lf_torch.lf_launch),
-                            lambda: lf_all(lf_torch.lf_pass_plain)),
+        args = cdef_args(planes, dirs, cd)
+        rows = first_maps(planes, m["lf"])
+        work = {"deblock": (
+                    lambda: lf_torch.lf_launch(planes, m["lf"], bd),
+                    lambda: lf_torch.lf_frame_plain(planes, m["lf"], bd),
+                    lambda: first_deblock(first["deblock"], planes, rows,
+                                          bd)),
                 "cdef_dirs": (lambda: cdef_torch.dirs_launch(
                                   planes[0], uh, uw, cd["cs"], cd["tabs"]),
                               lambda: cdef_torch.find_dirs(
-                                  planes[0], uh, uw, cd["cs"], cd["tabs"])),
-                "cdef_filter": (lambda: filt_all(cdef_torch.filter_launch),
-                                lambda: filt_all(cdef_torch.filter_plane))}
+                                  planes[0], uh, uw, cd["cs"], cd["tabs"]),
+                              None),
+                "cdef_filter": (
+                    lambda: cdef_torch.filter_launch(planes, *args),
+                    lambda: cdef_torch.filter_planes(planes, *args),
+                    lambda: first_cdef(first["cdef_filter"], planes, dirs,
+                                       cd, bd))}
         bounds = pf_bounds(f, dirs[1])
         t = out[name] = {}
-        for k, (kern, plain) in work.items():
+        for k, (kern, plain, old) in work.items():
             nbytes, ops = bounds[k]
             bound, by = _bound(nbytes, ops)
             t[k] = {"ms": cuda_ms(kern, 20), "plain_ms": cuda_ms(plain, 3),
                     "bound_ms": bound, "bound_by": by}
-            print(f"{name} key frame {k}: kernel {t[k]['ms']:.4f} ms, plain "
+            first_txt = ""
+            if old is not None:
+                check(max_err(old(), kern()) == 0,
+                      f"{name} key frame: the first {k} design differs from "
+                      "the shipped kernel")
+                t[k]["first_ms"] = cuda_ms(old, 20)
+                first_txt = (f", first design {t[k]['first_ms']:.4f} ms "
+                             f"({t[k]['first_ms'] / bound:.2f}x the bound)")
+            if k == "deblock":
+                def two():
+                    return twopass_deblock(first["twopass"], planes, m["lf"],
+                                           bd)
+
+                check(max_err(two(), kern()) == 0,
+                      f"{name} key frame: the two-launch deblocking differs "
+                      "from the shipped kernel")
+                t[k]["twopass_ms"] = cuda_ms(two, 20)
+                first_txt += (f", two launches on cell maps "
+                              f"{t[k]['twopass_ms']:.4f} ms "
+                              f"({t[k]['twopass_ms'] / bound:.2f}x)")
+            print(f"{name} key frame {k}: kernel {t[k]['ms']:.4f} ms "
+                  f"({t[k]['ms'] / bound:.2f}x the bound){first_txt}, plain "
                   f"version {t[k]['plain_ms']:.3f} ms, bound "
                   f"{bound * 1e3:.3f} us ({by}: {nbytes / 1e6:.2f} MB, "
                   f"{ops / 1e6:.1f} M integer operations)")
         t["chain"] = {"ms": cuda_ms(lambda: postfilter_apply(planes, m), 20),
                       "plain_ms": cuda_ms(
                           lambda: postfilter_apply_plain(planes, m), 3)}
-        print(f"{name} key frame LF + CDEF (postfilter_apply, "
-              f"{2 * len(on)} + 1 + {len(planes)} launches): "
-              f"{t['chain']['ms']:.4f} ms, plain chain "
+
+        def first_chain():
+            d = first_deblock(first["deblock"], planes, rows, bd)
+            return first_cdef(first["cdef_filter"], d, cdef_torch.dirs_launch(
+                d[0], uh, uw, cd["cs"], cd["tabs"]), cd, bd)
+
+        t["chain"]["first_ms"] = cuda_ms(first_chain, 20)
+        n_lf = sum(r is not None for r in rows)
+        print(f"{name} key frame LF + CDEF (postfilter_apply, 1 + 1 + 1 "
+              f"launches): {t['chain']['ms']:.4f} ms; the first designs "
+              f"({2 * n_lf} + 1 + {len(planes)} launches, on maps expanded "
+              f"before) {t['chain']['first_ms']:.4f} ms; plain chain "
               f"{t['chain']['plain_ms']:.3f} ms (CUDA events)")
     spec = importlib.util.spec_from_file_location(
         "torch_postfilter_profile",
@@ -1803,7 +1989,9 @@ def lf_cdef_timings(frames, dev):
               f"{o['kernels']['ops']:.1f} in {o['kernels']['wall_ms']:.3f} ms "
               f"wall, busy share {o['kernels']['busy_ms'] / o['kernels']['wall_ms']:.3f}; "
               f"plain {o['plain']['ops']:.1f} in {o['plain']['wall_ms']:.3f} "
-              f"ms wall" for title, o in ops.items()))
+              f"ms wall; host maps (ms) " + ", ".join(
+                  f"{n} {v:.3f}" for n, v in o["host_ms"].items())
+              for title, o in ops.items()))
     return out, ops
 
 
@@ -2703,11 +2891,16 @@ def vorbis_timings(v, dev):
 
 def kernel_entry(name, source, replaces, launches, err, t):
     """One entry of the kernels line; t: {"ms", "plain_ms", "bound_ms",
-    "bound_by"} from this run, and for the device composer
-    "bound_dense_ms" (the first design's bound, on the dense input) and
-    "first_ms" (the first design's time)."""
-    extra = {"bound_dense_ms": t["bound_dense_ms"],
-             "first_design_ms": t["first_ms"]} if "first_ms" in t else {}
+    "bound_by"} from this run, for a redesigned kernel "first_ms" (the
+    first design's time, on the same input), for the deblocking
+    "twopass_ms" (the two-launch design's), and for the device composer
+    "bound_dense_ms" (its first design's bound, on the dense input)."""
+    extra = {"bound_dense_ms": t["bound_dense_ms"]} \
+        if "bound_dense_ms" in t else {}
+    if "first_ms" in t:
+        extra["first_design_ms"] = t["first_ms"]
+    if "twopass_ms" in t:
+        extra["twopass_ms"] = t["twopass_ms"]
     return {"name": name, "route": "cuda",
             "source": f"easyav1_tpu_torch/csrc/{source}",
             "replaces": f"easyav1_tpu/video/av1/recon/{replaces}",

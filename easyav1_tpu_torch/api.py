@@ -599,8 +599,12 @@ class EasyAV1:
                 return True
         # a displayable frame may still be in flight on the decode-ahead
         # worker; settle it so pull-mode callers keep the synchronous
-        # decode_next -> has_video_frame contract
-        if self._vthread is not None:
+        # decode_next -> has_video_frame contract.  Not while play()
+        # drives the decode: its thread keeps the worker busy for as long
+        # as it is behind the clock, so a reader waiting for the worker
+        # to go idle would wait while the ring drops the frames it came
+        # for; the reader polls instead.
+        if self._vthread is not None and not self.is_playing():
             with self._vwork_cv:
                 busy = bool(self._vwork) or self._vworker_busy
             if busy:

@@ -494,7 +494,8 @@ LF_SIZES = (0, 4, 6, 8, 14)
 
 
 def random_postfilter_case(seed: int, dims, bd: int = 8, streams: int = 0,
-                           ss=(1, 1)) -> Dict:
+                           ss=(1, 1), map_shift: int = 2,
+                           clamp: bool = False) -> Dict:
     """Seeded int32 planes of `dims` ((h, w) each, luma first) and their
     deblocking and CDEF maps in `postfilter.host_maps`'s layout (every
     plane's deblocking on), with a leading stream axis of `streams` when
@@ -503,8 +504,22 @@ def random_postfilter_case(seed: int, dims, bd: int = 8, streams: int = 0,
     of a random amplitude (0, 1, 3 or 16 steps of 2^(bd-8)) and steps
     between blocks of random heights, so that flat sides, steps and rough
     texture all occur and every filter length (size 4, 6, 8, 14 or 0 at
-    random a (line, edge)) filters, with `hev` on and off (thresh at
-    random below 4 steps)."""
+    random a map cell and edge, so that neighbouring edges' writes
+    overlap) filters, with `hev` on and off (thresh at random below 4
+    steps).  The deblocking maps have one row a 4x4-cell row of lines
+    (`map_shift` 2, as the decoder's) or one a line (0); their levels
+    pick (limit, blimit, thresh) from a seeded LUT a plane.
+
+    With `clamp`, a band 4 pixels wide along each plane's border is flat
+    at the stream's level but for dips of 2 steps every 5 pixels on its
+    second line from the border; the deblocking leaves the band alone
+    (the sizes of the first two and the last three edges of each line,
+    and of every edge of the band's lines, are 0), and every unit
+    filters at primary strength 14, secondary
+    strength 4 and the largest damping.  A dip's taps inside the plane
+    then pull it up by more than the highest of them, so that the
+    filter's upper clamp binds beside the taps that fall past the
+    plane."""
     rng = np.random.default_rng(seed)
     lead = (streams,) if streams else ()
     step = 1 << (bd - 8)
@@ -520,23 +535,43 @@ def random_postfilter_case(seed: int, dims, bd: int = 8, streams: int = 0,
         lift = up(rng.choice([0, 0, 2, 6, 40], (*lead, bh, bw)) * step)
         level = rng.integers(32 * step, top - 96 * step, (*lead, 1, 1))
         noise = rng.integers(0, amp + 1)
-        planes.append(np.clip(level + lift + noise, 0, top).astype(np.int32))
+        plane = np.clip(level + lift + noise, 0, top)
+        if clamp:
+            band = np.ones((ph, pw), bool)
+            band[4:-4, 4:-4] = False
+            dip = np.zeros((ph, pw), bool)
+            dip[[1, ph - 2], 2::5] = dip[2::5, [1, pw - 2]] = True
+            plane = np.where(dip, level - 2 * step,
+                             np.where(band, level, plane))
+        planes.append(plane.astype(np.int32))
 
-    def lim(rows, ne):
-        return np.stack([rng.integers(1, 10 * step, (*lead, rows, ne)),
-                         rng.integers(5 * step, 60 * step, (*lead, rows, ne)),
-                         rng.integers(0, 4 * step, (*lead, rows, ne))],
-                        axis=-3).astype(np.int32)
+    def lut():
+        return np.stack([rng.integers(1, 10 * step, (*lead, 64)),
+                         rng.integers(5 * step, 60 * step, (*lead, 64)),
+                         rng.integers(0, 4 * step, (*lead, 64))],
+                        axis=-2).astype(np.int32)
+
+    def sizes(rows, ne):
+        return rng.choice(LF_SIZES, (*lead, rows, ne)).astype(np.uint8)
+
+    def levels(rows, ne):
+        return rng.integers(0, 64, (*lead, rows, ne)).astype(np.uint8)
 
     lf = []
+    cells = (1 << map_shift) - 1
     for ph, pw in dims:
         nev, neh = max((pw + 3) // 4 - 1, 0), max((ph + 3) // 4 - 1, 0)
-        lf.append({"sv": rng.choice(LF_SIZES, (*lead, ph, nev)).astype(
-                       np.int32),
-                   "lv": lim(ph, nev),
-                   "sh": rng.choice(LF_SIZES, (*lead, pw, neh)).astype(
-                       np.int32),
-                   "lh": lim(pw, neh)})
+        rv, rh = (ph + cells) >> map_shift, (pw + cells) >> map_shift
+        lf.append({"sv": sizes(rv, nev), "lv": levels(rv, nev),
+                   "sh": sizes(rh, neh), "lh": levels(rh, neh),
+                   "lut": lut()})
+    if clamp:
+        for (ph, pw), m in zip(dims, lf):
+            for k, lines in (("sv", ph), ("sh", pw)):
+                first = np.arange(m[k].shape[-2]) << map_shift
+                m[k][..., (first < 4)
+                     | (first + (1 << map_shift) > lines - 4), :] = 0
+                m[k][..., :2] = m[k][..., -3:] = 0
     cs = bd - 8
     u = (*lead, (dims[0][0] + 7) // 8, (dims[0][1] + 7) // 8)
     damping = rng.integers(3, 7, (streams, 1, 1) if streams else ()) + cs
@@ -548,4 +583,10 @@ def random_postfilter_case(seed: int, dims, bd: int = 8, streams: int = 0,
             "damping": (damping.astype(np.int32) if streams
                         else int(damping)),
             "ss": tuple(ss)}
+    if clamp:
+        for k, v in (("pri_y", 14), ("pri_uv", 14), ("sec_y", 4),
+                     ("sec_uv", 4), ("filt", 1)):
+            cdef[k][...] = v << cs if k != "filt" else v
+        cdef["damping"] = (np.full_like(damping, 6 + cs, dtype=np.int32)
+                           if streams else 6 + cs)
     return {"planes": planes, "maps": {"bd": bd, "lf": lf, "cdef": cdef}}

@@ -10,15 +10,16 @@ reads across them.
 
 `dirs_launch` and `filter_launch` are what the postfilter calls: on CUDA
 tensors each launches its kernel of `csrc/cdef.cu` (built by nvcc at
-first use) once, or raises; on CPU tensors they take `find_dirs` and
-`filter_plane`.  `dirs_launch.launches` and `filter_launch.launches`
-count the kernels' launches.
+first use) once a frame, the filter for all its planes, or raises; on
+CPU tensors they take `find_dirs` and `filter_planes`.
+`dirs_launch.launches` and `filter_launch.launches` count the kernels'
+launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -205,6 +206,25 @@ def filter_plane(plane: torch.Tensor, dir_u: torch.Tensor,
     return torch.where(active, val, px)
 
 
+def filter_planes(planes: List[torch.Tensor], dir_u: torch.Tensor,
+                  var_u: torch.Tensor, pri: List[torch.Tensor],
+                  sec: List[torch.Tensor], filt_u: torch.Tensor, ssx: int,
+                  ssy: int, bd: int, damping,
+                  tabs: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+    """`filter_launch` as plain torch ops on any device: `filter_plane`
+    of each plane (luma first) with its strengths."""
+    return [filter_plane(x, dir_u, var_u, pri[p], sec[p], filt_u, ssx, ssy,
+                         p, bd, damping, tabs)
+            for p, x in enumerate(planes)]
+
+
+def strengths(maps: Dict, planes: int):
+    """([pri], [sec]) unit maps of `planes` planes, luma first, from the
+    CDEF maps of `postfilter.host_maps` or `stack_maps`."""
+    return ([maps["pri_y" if p == 0 else "pri_uv"] for p in range(planes)],
+            [maps["sec_y" if p == 0 else "sec_uv"] for p in range(planes)])
+
+
 def _lib():
     from easyav1_tpu_torch import _build
     lib = _build.load("cdef")
@@ -212,8 +232,10 @@ def _lib():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.cdef_dirs_launch.restype = ci
         lib.cdef_dirs_launch.argtypes = [vp, vp, vp] + [ci] * 6 + [vp]
-        lib.cdef_filter_launch.restype = ci
-        lib.cdef_filter_launch.argtypes = [vp] * 8 + [ci] * 10 + [vp]
+        lib.cdef_frame_launch.restype = ci
+        lib.cdef_frame_launch.argtypes = [
+            ctypes.POINTER(vp), ctypes.POINTER(ci), vp, vp, vp, vp] + [
+            ci] * 8 + [vp]
     return lib
 
 
@@ -248,46 +270,60 @@ def dirs_launch(luma: torch.Tensor, uh: int, uw: int, coeff_shift: int,
 dirs_launch.launches = 0
 
 
-def filter_launch(plane: torch.Tensor, dir_u: torch.Tensor,
-                  var_u: torch.Tensor, pri_u: torch.Tensor,
-                  sec_u: torch.Tensor, filt_u: torch.Tensor, ssx: int,
-                  ssy: int, p: int, bd: int, damping,
-                  tabs: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """`filter_plane` of int32 planes [..., ph, pw] (at most one leading
-    axis) with int32 unit maps [..., uh, uw] covering them; `damping` an
-    int or an int32 tensor of one value a stream ([S, 1, 1]).  CUDA
-    tensors launch `cdef_filter_kernel` once into a new plane, or raise;
-    CPU tensors take `filter_plane`."""
-    *lead, ph, pw = plane.shape
-    units = (dir_u, var_u, pri_u, sec_u, filt_u)
-    bh, bw = 8 >> (ssy if p else 0), 8 >> (ssx if p else 0)
+def filter_launch(planes: List[torch.Tensor], dir_u: torch.Tensor,
+                  var_u: torch.Tensor, pri: List[torch.Tensor],
+                  sec: List[torch.Tensor], filt_u: torch.Tensor, ssx: int,
+                  ssy: int, bd: int, damping,
+                  tabs: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+    """`filter_plane` of a frame's int32 planes [..., ph, pw] (1 to 3,
+    luma first, at most one leading axis, samples in [0, 2^bd)) with the
+    int32 unit maps [..., uh, uw] covering them: the search's direction
+    and variance, each plane's strengths `pri[p]` and `sec[p]`, the
+    filter flags; `damping` an int or an int32 tensor of one value a
+    stream ([S, 1, 1]).  CUDA tensors launch `cdef_filter_kernel` once
+    for every plane into new planes, or raise; CPU tensors take
+    `filter_planes`.  No input is written."""
+    planes = list(planes)
+    n = len(planes)
+    lead = tuple(planes[0].shape[:-2]) if planes else ()
+    units = [dir_u, var_u, filt_u, *pri[:n], *sec[:n]]
     uh, uw = dir_u.shape[-2:] if dir_u.dim() >= 2 else (0, 0)
-    if plane.dtype != torch.int32 or not 2 <= plane.dim() <= 3 \
-            or any(u.dtype != torch.int32 or tuple(u.shape) != (*lead, uh, uw)
-                   for u in units) \
-            or uh * bh < ph or uw * bw < pw:
+    bad = not 1 <= n <= 3 or len(pri) != n or len(sec) != n or any(
+        u.dtype != torch.int32 or tuple(u.shape) != (*lead, uh, uw)
+        for u in units)
+    for p, x in enumerate(planes):
+        bh, bw = 8 >> (ssy if p else 0), 8 >> (ssx if p else 0)
+        bad = bad or x.dtype != torch.int32 or not 2 <= x.dim() <= 3 \
+            or tuple(x.shape[:-2]) != lead or uh * bh < x.shape[-2] \
+            or uw * bw < x.shape[-1]
+    if bad:
         raise ValueError(
-            f"want int32 planes [..., ph, pw] and int32 unit maps covering "
-            f"them, got {plane.dtype} {tuple(plane.shape)} and "
-            f"{[(u.dtype, tuple(u.shape)) for u in units]}")
+            f"want 1 to 3 int32 planes [..., ph, pw] and int32 unit maps "
+            f"covering them, got {[(x.dtype, tuple(x.shape)) for x in planes]}"
+            f" and {[(u.dtype, tuple(u.shape)) for u in units]}")
     damp = damping if isinstance(damping, torch.Tensor) else None
     if damp is not None and (damp.dtype != torch.int32
                              or damp.numel() != (lead[0] if lead else 1)):
         raise ValueError(f"want one int32 damping a stream, got "
                          f"{damp.dtype} {tuple(damp.shape)}")
-    if not on_card(plane, [plane, *units]
-                    + ([damp] if damp is not None else [])):
-        return filter_plane(plane, dir_u, var_u, pri_u, sec_u, filt_u, ssx,
-                            ssy, p, bd, damping, tabs)
-    out = torch.empty_like(plane)
-    with torch.cuda.device(plane.device):
-        rc = _lib().cdef_filter_launch(
-            plane.data_ptr(), out.data_ptr(),
-            *(u.data_ptr() for u in units),
+    if not on_card(planes[0], planes + units
+                   + ([damp] if damp is not None else [])):
+        return filter_planes(planes, dir_u, var_u, pri, sec, filt_u, ssx,
+                             ssy, bd, damping, tabs)
+    out = [torch.empty_like(x) for x in planes]
+    ptrs = [t.data_ptr() for p in range(n)
+            for t in (planes[p], out[p], pri[p], sec[p])]
+    dims = [d for x in planes for d in x.shape[-2:]]
+    dev = planes[0].device
+    with torch.cuda.device(dev):
+        rc = _lib().cdef_frame_launch(
+            (ctypes.c_void_p * len(ptrs))(*ptrs),
+            (ctypes.c_int * len(dims))(*dims), dir_u.data_ptr(),
+            var_u.data_ptr(), filt_u.data_ptr(),
             None if damp is None else damp.data_ptr(),
-            0 if damp is not None else int(damping), lead[0] if lead else 1,
-            ph, pw, uh, uw, ssx, ssy, p, bd,
-            torch.cuda.current_stream(plane.device).cuda_stream)
+            0 if damp is not None else int(damping), n,
+            lead[0] if lead else 1, uh, uw, ssx, ssy, bd,
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"cdef_filter launch failed: cudaError {rc}")
     filter_launch.launches += 1

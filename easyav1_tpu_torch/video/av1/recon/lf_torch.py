@@ -8,16 +8,23 @@ view of the padded plane.  The horizontal pass runs on the transposed
 plane.  Leading dimensions are independent planes (a stream axis): the
 pass filters them all with the same operations as one plane.
 
-`lf_launch` is the pass the postfilter calls: on CUDA tensors it launches
-the hand-written kernel `csrc/loopfilter.cu` (built by nvcc at first
-use), which reads the rows of the plane directly in both directions, or
-raises; on CPU tensors it takes `pass_body`.  `lf_launch.launches`
-counts the kernel's launches.
+The maps come as the decoder makes them: uint8 edge sizes and levels,
+one map row a 4x4-cell row of lines (or one a line: seeded maps), and a
+64-entry (limit, blimit, thresh) LUT over the level.  `expand_maps`
+makes the per-line int32 maps `pass_body` takes (what the JAX package's
+jit does with its cell maps, `postfilter_fused.py:64-70`).
+
+`lf_launch` is what the postfilter calls: every plane of a frame, both
+directions, on CUDA tensors in one launch of the hand-written kernel
+`csrc/loopfilter.cu` (built by nvcc at first use), or raises; on CPU
+tensors it takes `lf_frame_plain`.  `lf_launch.launches` counts the
+kernel's launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, List, Optional
 
 import torch
 
@@ -153,14 +160,59 @@ def pass_body(buf: torch.Tensor, size_m: torch.Tensor, limit: torch.Tensor,
     return B[..., PAD:PAD + W]
 
 
-def lf_pass_plain(buf: torch.Tensor, size_m: torch.Tensor, lim: torch.Tensor,
-                  bd: int, horizontal: bool = False) -> torch.Tensor:
-    """`lf_launch`'s pass as plain torch ops on any device: `pass_body`,
-    on the transposed plane for the horizontal edges."""
+def map_shift(rows: int, lines: int) -> int:
+    """The map-row shift of a deblocking map of `rows` rows over `lines`
+    pixel lines: 0 for one row a line, 2 for one row a 4x4-cell row."""
+    if rows == lines:
+        return 0
+    if rows == (lines + 3) >> 2:
+        return 2
+    raise ValueError(f"a map of {rows} rows covers neither the {lines} "
+                     f"lines nor their {(lines + 3) >> 2} cell rows")
+
+
+def expand_maps(size: torch.Tensor, level: torch.Tensor, lut: torch.Tensor,
+                lines: int):
+    """(size [..., lines, ne], lim [..., 3, lines, ne]) int32, one row a
+    pixel line as `pass_body` takes them, from the uint8 size and level
+    maps [..., R, ne] (R = lines, or the cell rows (lines + 3) // 4) and
+    the int32 (limit, blimit, thresh) LUT [..., 3, 64] over the level."""
+    rows, ne = size.shape[-2:]
+    rep = 1 << map_shift(rows, lines)
+    idx = level.long().flatten(-2).unsqueeze(-2).expand(
+        *level.shape[:-2], 3, rows * ne)
+    lim = torch.gather(lut, -1, idx).reshape(*level.shape[:-2], 3, rows, ne)
+    size = size.to(torch.int32)
+    if rep > 1:
+        size = size.repeat_interleave(rep, -2)[..., :lines, :]
+        lim = lim.repeat_interleave(rep, -2)[..., :lines, :]
+    return size, lim
+
+
+def lf_pass_plain(buf: torch.Tensor, size: torch.Tensor, level: torch.Tensor,
+                  lut: torch.Tensor, bd: int,
+                  horizontal: bool = False) -> torch.Tensor:
+    """One deblocking pass as plain torch ops on any device: `pass_body`
+    on the maps `expand_maps` makes, on the transposed plane for the
+    horizontal edges."""
+    H, W = buf.shape[-2:]
+    size_m, lim = expand_maps(size, level, lut, W if horizontal else H)
     if horizontal:
         return pass_body(buf.transpose(-1, -2), size_m, *lim.unbind(-3),
                          bd).transpose(-1, -2)
     return pass_body(buf, size_m, *lim.unbind(-3), bd)
+
+
+def lf_frame_plain(planes: List[torch.Tensor], maps: List[Optional[Dict]],
+                   bd: int) -> List[torch.Tensor]:
+    """`lf_launch` as plain torch ops on any device: each plane with maps
+    through the vertical pass, then the horizontal one."""
+    out = list(planes)
+    for p, m in enumerate(maps):
+        if m is not None:
+            buf = lf_pass_plain(out[p], m["sv"], m["lv"], m["lut"], bd)
+            out[p] = lf_pass_plain(buf, m["sh"], m["lh"], m["lut"], bd, True)
+    return out
 
 
 def on_card(t: torch.Tensor, tensors) -> bool:
@@ -180,48 +232,88 @@ def on_card(t: torch.Tensor, tensors) -> bool:
 def _lib():
     from easyav1_tpu_torch import _build
     lib = _build.load("loopfilter")
-    fn = lib.lf_pass_launch
+    fn = lib.lf_frame_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+        ci = ctypes.c_int
+        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                       ctypes.POINTER(ci), ci, ci, ci, ctypes.c_void_p]
     return lib
 
 
-def lf_launch(buf: torch.Tensor, size_m: torch.Tensor, lim: torch.Tensor,
-              bd: int, horizontal: bool = False) -> torch.Tensor:
-    """One deblocking pass over [..., H, W] int32 planes: the vertical
-    edges, or with `horizontal` the horizontal ones.  size_m [..., R, ne]
-    and lim [..., 3, R, ne] (limit, blimit, thresh) int32, one map row a
-    pixel row (R = H) or, horizontal, a pixel column (R = W); ne the
-    pass's edges.  CUDA tensors (contiguous) launch `csrc/loopfilter.cu`
-    once into a new plane, or raise; CPU tensors take `lf_pass_plain`.
-    The input is never written."""
-    *lead, H, W = buf.shape
-    R, along = (W, H) if horizontal else (H, W)
-    ne = (along + 3) // 4 - 1
-    if buf.dtype != torch.int32 or size_m.dtype != torch.int32 \
-            or lim.dtype != torch.int32 or not 2 <= buf.dim() <= 3 \
-            or tuple(size_m.shape) != (*lead, R, max(ne, 0)) \
-            or tuple(lim.shape) != (*lead, 3, R, max(ne, 0)):
-        raise ValueError(
-            f"want int32 planes [..., H, W] with maps [..., {R}, ne] and "
-            f"[..., 3, {R}, ne], got {buf.dtype} {tuple(buf.shape)}, "
-            f"{size_m.dtype} {tuple(size_m.shape)}, {lim.dtype} "
-            f"{tuple(lim.shape)}")
-    if not on_card(buf, [buf, size_m, lim]):
-        return lf_pass_plain(buf, size_m, lim, bd, horizontal)
-    if ne <= 0:
-        return buf
-    out = torch.empty_like(buf)
-    with torch.cuda.device(buf.device):
-        rc = _lib().lf_pass_launch(
-            buf.data_ptr(), out.data_ptr(), size_m.data_ptr(),
-            lim.data_ptr(), lead[0] if lead else 1, H, W, ne,
-            int(horizontal), bd,
-            torch.cuda.current_stream(buf.device).cuda_stream)
+def _check(planes, maps):
+    """The shapes and dtypes `lf_launch` takes; returns the map-row
+    shifts (vertical, horizontal) of each plane with maps."""
+    shifts = {}
+    lead = planes[0].shape[:-2] if planes else ()
+    for p, (buf, m) in enumerate(zip(planes, maps)):
+        if m is None:
+            continue
+        *ld, H, W = buf.shape
+        nev, neh = max((W + 3) // 4 - 1, 0), max((H + 3) // 4 - 1, 0)
+        sv, sh = m["sv"].shape[-2:], m["sh"].shape[-2:]
+        ok = (buf.dtype == torch.int32 and 2 <= buf.dim() <= 3
+              and tuple(ld) == tuple(lead) and len(sv) == len(sh) == 2
+              and sv[1] == nev and sh[1] == neh
+              and all(m[k].dtype == torch.uint8
+                      and tuple(m[k].shape) == (*ld, *(sv if k[1] == "v"
+                                                       else sh))
+                      for k in ("sv", "lv", "sh", "lh"))
+              and m["lut"].dtype == torch.int32
+              and tuple(m["lut"].shape) == (*ld, 3, 64))
+        if not ok:
+            raise ValueError(
+                f"plane {p}: want int32 planes [..., H, W] with uint8 maps "
+                f"[..., R, {nev}] (sv, lv), [..., R, {neh}] (sh, lh) and an "
+                f"int32 LUT [..., 3, 64], got {buf.dtype} "
+                f"{tuple(buf.shape)} and " + ", ".join(
+                    f"{k} {m[k].dtype} {tuple(m[k].shape)}"
+                    for k in ("sv", "lv", "sh", "lh", "lut")))
+        shifts[p] = (map_shift(sv[0], H), map_shift(sh[0], W))
+    return shifts
+
+
+def lf_launch(planes: List[torch.Tensor], maps: List[Optional[Dict]],
+              bd: int) -> List[torch.Tensor]:
+    """Deblocking of a frame's planes ([..., H, W] int32, at most one
+    leading stream axis, samples in [0, 2^bd)): the vertical edges, then
+    the horizontal ones, of each plane whose `maps` entry is not None:
+    {"sv", "lv": uint8 [..., R, nev] edge sizes and levels of the vertical
+    edges, R = H or (H + 3) // 4; "sh", "lh": [..., R, neh] of the
+    horizontal ones, R = W or (W + 3) // 4, one row a pixel column or a
+    cell column; "lut": int32 [..., 3, 64] (limit, blimit, thresh) by
+    level}.  CUDA tensors (contiguous) launch `csrc/loopfilter.cu` once
+    for all of them into new planes, or raise; CPU tensors take
+    `lf_frame_plain`.  A plane without maps is returned as it is; no
+    input is written."""
+    planes = list(planes)
+    shifts = _check(planes, maps)
+    if not shifts:
+        return planes
+    on = sorted(shifts)
+    tensors = [t for p in on for t in
+               [planes[p]] + [maps[p][k] for k in ("sv", "lv", "sh", "lh",
+                                                   "lut")]]
+    if not on_card(planes[on[0]], tensors):
+        return lf_frame_plain(planes, maps, bd)
+    out = list(planes)
+    ptrs, dims = [], []
+    for p in on:
+        out[p] = torch.empty_like(planes[p])
+        m = maps[p]
+        ptrs += [planes[p].data_ptr(), out[p].data_ptr()] + [
+            m[k].data_ptr() for k in ("sv", "lv", "sh", "lh", "lut")]
+        dims += [*planes[p].shape[-2:], *shifts[p]]
+    lead = planes[on[0]].shape[:-2]
+    dev = planes[on[0]].device
+    with torch.cuda.device(dev):
+        rc = _lib().lf_frame_launch(
+            (ctypes.c_void_p * len(ptrs))(*ptrs),
+            (ctypes.c_int * len(dims))(*dims), len(on),
+            lead[0] if lead else 1, bd,
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"lf_pass launch failed: cudaError {rc}")
+        raise RuntimeError(f"lf_frame launch failed: cudaError {rc}")
     lf_launch.launches += 1
     return out
 

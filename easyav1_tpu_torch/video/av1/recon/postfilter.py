@@ -69,10 +69,11 @@ def _cell_maps(g, plane, vertical: bool):
 def _lf_size_maps(hdr, bd, dims, grids_for):
     """Host, for a frame whose deblocking is on: for each plane None
     when its level is 0 (it is not deblocked), else its (size_v, size_h)
-    cell grids plus PER-EDGE (limit, blimit, thresh) maps (levels vary
-    per block on inter frames via ref/mode deltas, segments and
-    delta_lf; the C decoder exports the resolved per-cell level
-    grids)."""
+    cell grids plus PER-EDGE level grids (levels vary per block on inter
+    frames via ref/mode deltas, segments and delta_lf; the C decoder
+    exports the resolved per-cell level grids), all uint8 with one row a
+    4x4-cell row of lines; and the 64-entry (limit, blimit, thresh) LUT
+    over the level, int32 [3, 64]."""
     level = hdr.lf.level
     plane_on = (bool(level[0] or level[1]), bool(level[2]), bool(level[3]))
     # 64-entry (limit, blimit, thresh) LUTs over the level
@@ -85,14 +86,14 @@ def _lf_size_maps(hdr, bd, dims, grids_for):
             out.append(None)
             continue
         g = grids_for(p, (ph, pw))
-        sizes, lims = [], []
+        sizes, levels = [], []
         for pass_ in (0, 1):
             vertical = pass_ == 0
             ne = g["gw"] - 1 if vertical else g["gh"] - 1
             rows = (ph + 3) // 4 if vertical else (pw + 3) // 4
             if ne <= 0:
-                size = np.zeros((rows, max(ne, 0)), np.int32)
-                lim = np.zeros((3, rows, max(ne, 0)), np.int32)
+                size = np.zeros((rows, max(ne, 0)), np.uint8)
+                lvl_e = np.zeros((rows, max(ne, 0)), np.uint8)
             else:
                 size = _cell_maps(g, p, vertical)
                 # per-edge level: current cell's, else the neighbour's
@@ -103,8 +104,7 @@ def _lf_size_maps(hdr, bd, dims, grids_for):
                 else:
                     lvl_e = np.where(lv[1:, :] > 0, lv[1:, :],
                                      lv[:-1, :]).T
-                size = np.where(lvl_e > 0, size, 0)
-                lim = luts[:, lvl_e]
+                size = np.where(lvl_e > 0, size, 0).astype(np.uint8)
                 # visible-frame crop (parity: lf_ref._filter_pass)
                 ss_x = 1 if g["gw"] < hdr.mi_cols else 0
                 ss_y = 1 if g["gh"] < hdr.mi_rows else 0
@@ -120,10 +120,11 @@ def _lf_size_maps(hdr, bd, dims, grids_for):
                     size[(vis_w + 3) >> 2:, :] = 0
                     ecap = (vis_h >> 2) - 1
                     size[:, max(ecap, 0):] = 0
+                lvl_e = lvl_e.astype(np.uint8)
             sizes.append(size)
-            lims.append(lim)
-        out.append((*sizes, *lims))
-    return out
+            levels.append(lvl_e)
+        out.append((*sizes, *levels))
+    return out, luts
 
 
 def unit_maps(skip_grid: np.ndarray, cdef_idx_grid: np.ndarray,
@@ -164,22 +165,31 @@ def host_maps(hdr, seq, dims, grids_for, skip_grid: np.ndarray,
               cdef_idx_grid: np.ndarray) -> Dict:
     """`postfilter_maps` before the upload: the same dict of numpy
     arrays, without CDEF's "tabs"."""
-    bd = seq.color.bitdepth
-    maps = {"bd": bd, "lf": None, "cdef": None}
-    lf_on = not (hdr.lf.level[0] == 0 and hdr.lf.level[1] == 0
-                 and hdr.lf.level[2] == 0 and hdr.lf.level[3] == 0) \
-        and not getattr(hdr, "allow_intrabc", False)
-    if lf_on:
-        # a plane whose level is 0 is not deblocked and has no maps
-        maps["lf"] = [
-            None if cells is None else
-            {"sv": np.repeat(cells[0], 4, axis=0)[:ph],
-             "sh": np.repeat(cells[1], 4, axis=0)[:pw],
-             "lv": np.repeat(cells[2], 4, axis=1)[:, :ph],
-             "lh": np.repeat(cells[3], 4, axis=1)[:, :pw]}
-            for cells, (ph, pw) in zip(
-                _lf_size_maps(hdr, bd, dims, grids_for), dims)]
+    return {"bd": seq.color.bitdepth,
+            "lf": lf_host_maps(hdr, seq, dims, grids_for),
+            "cdef": cdef_host_maps(hdr, seq, skip_grid, cdef_idx_grid)}
 
+
+def lf_host_maps(hdr, seq, dims, grids_for):
+    """The deblocking half of `host_maps`: None when the frame does not
+    deblock, else for each plane None (its level is 0) or its uint8 cell
+    maps {"sv", "lv", "sh", "lh"}, one row a 4x4-cell row of lines (the
+    kernel reads them so), and the frame's "lut"."""
+    if not any(hdr.lf.level[:4]) or getattr(hdr, "allow_intrabc", False):
+        return None
+    cells, lut = _lf_size_maps(hdr, seq.color.bitdepth, dims, grids_for)
+    return [None if c is None else
+            {"sv": c[0][:(ph + 3) >> 2], "sh": c[1][:(pw + 3) >> 2],
+             "lv": c[2][:(ph + 3) >> 2], "lh": c[3][:(pw + 3) >> 2],
+             "lut": lut}
+            for c, (ph, pw) in zip(cells, dims)]
+
+
+def cdef_host_maps(hdr, seq, skip_grid: np.ndarray,
+                   cdef_idx_grid: np.ndarray):
+    """The CDEF half of `host_maps`: None when CDEF is off, else the
+    int32 unit maps (strengths shifted by coeff_shift, 0 where a unit is
+    skipped; the filter flags) and the frame's constants."""
     cd = hdr.cdef
     cdef_on = (getattr(seq, "enable_cdef", False) and cd is not None
                and not hdr.coded_lossless
@@ -188,24 +198,23 @@ def host_maps(hdr, seq, dims, grids_for, skip_grid: np.ndarray,
                     or max(cd.y_sec_strength, default=0)
                     or max(cd.uv_pri_strength, default=0)
                     or max(cd.uv_sec_strength, default=0)))
-    if cdef_on:
-        cs = bd - 8
-        filt, idxm = unit_maps(skip_grid, cdef_idx_grid, hdr.mi_rows,
-                               hdr.mi_cols)
-        safe = np.where(idxm >= 0, idxm, 0)
-        sel = filt != 0
-        nz = np.zeros(8, np.int32)     # monochrome streams code no uv
-        strengths = {
-            "pri_y": cd.y_pri_strength, "sec_y": cd.y_sec_strength,
-            "pri_uv": cd.uv_pri_strength if len(cd.uv_pri_strength) else nz,
-            "sec_uv": cd.uv_sec_strength if len(cd.uv_sec_strength) else nz}
-        maps["cdef"] = {
-            k: (np.where(sel, np.asarray(v, np.int32)[safe], 0)
+    if not cdef_on:
+        return None
+    cs = seq.color.bitdepth - 8
+    filt, idxm = unit_maps(skip_grid, cdef_idx_grid, hdr.mi_rows,
+                           hdr.mi_cols)
+    safe = np.where(idxm >= 0, idxm, 0)
+    sel = filt != 0
+    nz = np.zeros(8, np.int32)     # monochrome streams code no uv
+    strengths = {
+        "pri_y": cd.y_pri_strength, "sec_y": cd.y_sec_strength,
+        "pri_uv": cd.uv_pri_strength if len(cd.uv_pri_strength) else nz,
+        "sec_uv": cd.uv_sec_strength if len(cd.uv_sec_strength) else nz}
+    return {k: (np.where(sel, np.asarray(v, np.int32)[safe], 0)
                 << cs).astype(np.int32) for k, v in strengths.items()} | {
-            "filt": filt.astype(np.int32), "cs": cs,
-            "damping": cd.damping + cs,
-            "ss": (seq.color.subsampling_x, seq.color.subsampling_y)}
-    return maps
+        "filt": filt.astype(np.int32), "cs": cs,
+        "damping": cd.damping + cs,
+        "ss": (seq.color.subsampling_x, seq.color.subsampling_y)}
 
 
 def upload_maps(maps: Dict, device: torch.device) -> Dict:
@@ -238,9 +247,8 @@ def stack_maps(maps: List[Dict], dims, device: torch.device) -> Dict:
     if len(bds) != 1:
         raise ValueError(f"one batch, one bit depth: {sorted(bds)}")
 
-    def stack(arrays, shape):
-        out = torch.empty((len(arrays), *shape), dtype=torch.int32,
-                          device=device)
+    def stack(arrays, shape, dtype=torch.int32):
+        out = torch.empty((len(arrays), *shape), dtype=dtype, device=device)
         for s, a in enumerate(arrays):
             if a is None:
                 out[s].zero_()
@@ -257,11 +265,14 @@ def stack_maps(maps: List[Dict], dims, device: torch.device) -> Dict:
                 out["lf"].append(None)      # no stream deblocks plane p
                 continue
             nev, neh = max((pw + 3) // 4 - 1, 0), max((ph + 3) // 4 - 1, 0)
-            shapes = {"sv": (ph, nev), "lv": (3, ph, nev), "sh": (pw, neh),
-                      "lh": (3, pw, neh)}
-            out["lf"].append({k: stack([None if d is None else d[k]
-                                        for d in per], shape)
-                              for k, shape in shapes.items()})
+            rv, rh = (ph + 3) // 4, (pw + 3) // 4
+            shapes = {"sv": (rv, nev), "lv": (rv, nev), "sh": (rh, neh),
+                      "lh": (rh, neh)}
+            lf = {k: stack([None if d is None else d[k] for d in per], shape,
+                           torch.uint8) for k, shape in shapes.items()}
+            lf["lut"] = stack([None if d is None else d["lut"] for d in per],
+                              (3, 64))
+            out["lf"].append(lf)
     on = [m["cdef"] for m in maps if m["cdef"] is not None]
     if on:
         keys = ("pri_y", "sec_y", "pri_uv", "sec_uv", "filt")
@@ -280,9 +291,9 @@ def postfilter_apply(planes: List[torch.Tensor], maps: Dict,
                      want_deblocked: bool = False):
     """The device half: LF + CDEF over mi-aligned int32 planes with the
     maps of `postfilter_maps`, through the kernels' wrappers (on CUDA
-    planes two `lf_torch.lf_launch` a plane whose deblocking is on, one
-    `cdef_torch.dirs_launch` and one `cdef_torch.filter_launch` a plane
-    when CDEF is on); returns the filtered planes, or with
+    planes one `lf_torch.lf_launch` when a plane deblocks, and one
+    `cdef_torch.dirs_launch` and one `cdef_torch.filter_launch` when CDEF
+    is on: three launches a frame at most); returns the filtered planes, or with
     `want_deblocked` (planes, deblocked): also the planes after LF and
     before CDEF, which loop restoration reads above and below a stripe
     (`postfilter_fused.py:206`, `:256-257`).  No function here writes a
@@ -295,31 +306,25 @@ def postfilter_apply(planes: List[torch.Tensor], maps: Dict,
 
 def postfilter_apply_plain(planes: List[torch.Tensor], maps: Dict,
                            want_deblocked: bool = False):
-    """`postfilter_apply` as plain torch ops on any device (`lf_pass_plain`,
-    `find_dirs`, `filter_plane`): what the kernels are held to on the
+    """`postfilter_apply` as plain torch ops on any device
+    (`lf_frame_plain`, `find_dirs`, `filter_planes`): what the kernels are held to on the
     card, and what `postfilter_apply` runs on CPU planes."""
-    return _apply(planes, maps, want_deblocked, lf_torch.lf_pass_plain,
-                  cdef_torch.find_dirs, cdef_torch.filter_plane)
+    return _apply(planes, maps, want_deblocked, lf_torch.lf_frame_plain,
+                  cdef_torch.find_dirs, cdef_torch.filter_planes)
 
 
-def _apply(planes, maps, want_deblocked, lf_pass, find_dirs, filter_plane):
+def _apply(planes, maps, want_deblocked, deblock, find_dirs, filt):
     bd = maps["bd"]
     out = list(planes)
     if maps["lf"] is not None:
-        for p, m in enumerate(maps["lf"]):
-            if m is None:
-                continue
-            buf = lf_pass(out[p], m["sv"], m["lv"], bd)
-            out[p] = lf_pass(buf, m["sh"], m["lh"], bd, horizontal=True)
+        out = deblock(out, maps["lf"], bd)
     deblocked = list(out)
     m = maps["cdef"]
     if m is not None:
         uh, uw = m["filt"].shape[-2:]
         dirs, var = find_dirs(out[0], uh, uw, m["cs"], m["tabs"])
-        out = [filter_plane(
-            out[p], dirs, var, m["pri_y" if p == 0 else "pri_uv"],
-            m["sec_y" if p == 0 else "sec_uv"], m["filt"], *m["ss"], p, bd,
-            m["damping"], m["tabs"]) for p in range(len(out))]
+        out = filt(out, dirs, var, *cdef_torch.strengths(m, len(out)),
+                   m["filt"], *m["ss"], bd, m["damping"], m["tabs"])
     return (out, deblocked) if want_deblocked else out
 
 

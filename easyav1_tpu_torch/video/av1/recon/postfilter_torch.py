@@ -5,9 +5,9 @@ stream-axis batch: the counterparts of `postfilter_jax.make_postfilter`
 The JAX package vmaps the step over streams and shards the stream axis
 over a mesh's `dp` axis.  One card has no mesh: the port's step takes a
 leading stream axis directly (`lf_torch.lf_launch`,
-`cdef_torch.filter_launch`: on the card two launches of
-`csrc/loopfilter.cu` and one of `csrc/cdef.cu` a step), so S streams
-run on the launches of one.
+`cdef_torch.filter_launch`: on the card one launch of
+`csrc/loopfilter.cu` and one of `csrc/cdef.cu` a step, the deblocking
+maps one row a pixel line), so S streams run on the launches of one.
 """
 
 from __future__ import annotations
@@ -31,18 +31,20 @@ def make_postfilter(H: int, W: int, bd: int = 8, damping: int = 5):
 
     def fn(plane, size_v, size_h, limit, blimit, thresh,
            dir_u, var_u, pri_u, sec_u, filt_u):
-        # the shared limits as the per-edge maps the deblocking pass takes
-        def lims(size):
-            return torch.stack([torch.as_tensor(t, dtype=torch.int32,
-                                                device=size.device)
-                                .expand_as(size)
-                                for t in (limit, blimit, thresh)], -3)
-
-        x = lf_torch.lf_launch(plane, size_v, lims(size_v), bd)
-        x = lf_torch.lf_launch(x, size_h, lims(size_h), bd, horizontal=True)
-        return cdef_torch.filter_launch(x, dir_u, var_u, pri_u, sec_u,
-                                        filt_u, 0, 0, 0, bd, damping,
-                                        convert.tables(plane.device))
+        # the per-line size maps (map-row shift 0) with level 0 everywhere
+        # and the shared limits as the LUT's every entry
+        lead = plane.shape[:-2]
+        lut = torch.stack([torch.as_tensor(t, dtype=torch.int32,
+                                           device=plane.device)
+                           .expand(*lead, 64) for t in (limit, blimit,
+                                                        thresh)], -2)
+        sv, sh = (s.to(torch.uint8).contiguous() for s in (size_v, size_h))
+        x, = lf_torch.lf_launch([plane], [{
+            "sv": sv, "lv": torch.zeros_like(sv), "sh": sh,
+            "lh": torch.zeros_like(sh), "lut": lut.contiguous()}], bd)
+        return cdef_torch.filter_launch([x], dir_u, var_u, [pri_u], [sec_u],
+                                        filt_u, 0, 0, bd, damping,
+                                        convert.tables(plane.device))[0]
 
     rng = np.random.default_rng(0)
     nev = (W + 3) // 4 - 1

@@ -128,7 +128,11 @@ def test_play_smoke():
     frames come out in order, each equal to the oracle.  Every frame is
     decoded (skip_unprocessed_frames off): in latest-only mode a session
     more than a second behind the clock seeks ahead, and how far it falls
-    behind on the CPU depends on the host's load."""
+    behind on the CPU depends on the host's load.  The reader polls
+    while the playback thread decodes (a reader that waited for the
+    decode thread to go idle saw it busy for as long as play() was behind
+    the clock, while the ring of 11 dropped the frames it came for), and
+    takes the frames still queued when the stream has ended."""
     _path, golden = _fixture()
     av = _port("host composer",
                EasyAV1Settings(skip_unprocessed_frames=False))
@@ -136,13 +140,14 @@ def test_play_smoke():
     try:
         assert av.play() == 1
         t0 = time.time()
-        while time.time() - t0 < 20.0 and not av.is_finished() \
-                and len(seen) < 8:
-            if av.has_video_frame():
-                fr = av.get_video_frame()
-                if fr is not None:
-                    seen.append(_frame(fr, golden)[0])
-            time.sleep(0.01)
+        while time.time() - t0 < 60.0 and len(seen) < 8:
+            fr = av.get_video_frame() if av.has_video_frame() else None
+            if fr is not None:
+                seen.append(_frame(fr, golden)[0])
+            elif av.is_finished() and not av.has_video_frame():
+                break
+            else:
+                time.sleep(0.01)
         av.stop()
         assert not av.is_playing()
     finally:

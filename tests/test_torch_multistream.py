@@ -52,20 +52,20 @@ def _planes(rng, bd, shape, n=STREAMS):
 
 
 def _lf_maps(rng, bd, ph, pw):
-    """One plane's seeded deblocking maps, as `host_maps` lays them."""
+    """One plane's seeded deblocking maps, as `host_maps` lays them: uint8
+    sizes and levels a 4x4-cell row of lines and edge, and a LUT."""
     s = 1 << (bd - 8)
     nev, neh = (pw + 3) // 4 - 1, (ph + 3) // 4 - 1
-
-    def lim(rows, ne):
-        return np.stack([rng.integers(1, 10 * s, (rows, ne)),
-                         rng.integers(5 * s, 60 * s, (rows, ne)),
-                         rng.integers(0, 4 * s, (rows, ne))]).astype(np.int32)
-
+    rv, rh = (ph + 3) // 4, (pw + 3) // 4
+    lut = np.stack([rng.integers(1, 10 * s, 64),
+                    rng.integers(5 * s, 60 * s, 64),
+                    rng.integers(0, 4 * s, 64)]).astype(np.int32)
     sizes = [0, 4, 6, 8, 14]
-    return {"sv": rng.choice(sizes, (ph, nev)).astype(np.int32),
-            "lv": lim(ph, nev),
-            "sh": rng.choice(sizes, (pw, neh)).astype(np.int32),
-            "lh": lim(pw, neh)}
+    return {"sv": rng.choice(sizes, (rv, nev)).astype(np.uint8),
+            "lv": rng.integers(0, 64, (rv, nev)).astype(np.uint8),
+            "sh": rng.choice(sizes, (rh, neh)).astype(np.uint8),
+            "lh": rng.integers(0, 64, (rh, neh)).astype(np.uint8),
+            "lut": lut}
 
 
 def _host_maps(rng, bd, dims, lf=True, cdef=True, damping=5):
@@ -104,14 +104,19 @@ def test_pass_body_stream_axis(bd, shape):
     planes = _planes(rng, bd, shape)
     m = [_lf_maps(rng, bd, *shape) for _ in range(STREAMS)]
     stack = {k: torch.from_numpy(np.stack([d[k] for d in m])) for k in m[0]}
-    got = lf_torch.pass_body(planes, stack["sv"], *stack["lv"].unbind(1), bd)
-    back = lf_torch.pass_body(got.transpose(-1, -2), stack["sh"],
-                              *stack["lh"].unbind(1), bd).transpose(-1, -2)
+    H, W = shape
+    sv, lv = lf_torch.expand_maps(stack["sv"], stack["lv"], stack["lut"], H)
+    sh, lh = lf_torch.expand_maps(stack["sh"], stack["lh"], stack["lut"], W)
+    got = lf_torch.pass_body(planes, sv, *lv.unbind(1), bd)
+    back = lf_torch.pass_body(got.transpose(-1, -2), sh, *lh.unbind(1),
+                              bd).transpose(-1, -2)
     for s in range(STREAMS):
         t = {k: torch.from_numpy(v) for k, v in m[s].items()}
-        one = lf_torch.pass_body(planes[s], t["sv"], *t["lv"], bd)
+        sv, lv = lf_torch.expand_maps(t["sv"], t["lv"], t["lut"], H)
+        sh, lh = lf_torch.expand_maps(t["sh"], t["lh"], t["lut"], W)
+        one = lf_torch.pass_body(planes[s], sv, *lv, bd)
         _eq(got[s], one, f"vertical pass, stream {s}")
-        one = lf_torch.pass_body(one.T, t["sh"], *t["lh"], bd).T
+        one = lf_torch.pass_body(one.T, sh, *lh, bd).T
         _eq(back[s], one, f"both passes, stream {s}")
 
 
@@ -194,7 +199,8 @@ def test_stack_maps_zero_maps_and_one_bit_depth():
     assert st["lf"] is None and st["cdef"] is None
     on = _host_maps(rng, 8, dims)
     st = stack_maps([off, on], dims, CPU)
-    assert st["lf"][0]["lv"].shape == (2, 3, 52, 16)
+    assert st["lf"][0]["lv"].shape == (2, 13, 16)
+    assert st["lf"][0]["lut"].shape == (2, 3, 64)
     assert not st["lf"][1]["sv"][0].any() and not st["cdef"]["filt"][0].any()
     _eq(st["lf"][1]["lh"][1], on["lf"][1]["lh"], "stream 1's map")
     assert st["cdef"]["damping"].flatten().tolist() == [5, 5]

@@ -12,7 +12,8 @@ restoration and film grain on) up to inter frame min(FRAME, 7), keeps
 what enters each stage of that frame, then runs each stage REPEATS times
 (default 5) under `torch.profiler`: deblocking + CDEF on both, as the
 pipe runs it (`postfilter_apply`: the hand kernels of
-csrc/loopfilter.cu and csrc/cdef.cu) and as plain torch ops
+csrc/loopfilter.cu and csrc/cdef.cu, three launches a frame at most)
+and as plain torch ops
 (`postfilter_apply_plain`, the eager chain those kernels replaced),
 loop restoration (`lr_torch`, host maps included) and film grain
 (`fg_torch`, the per-frame host random values included, the templates
@@ -23,7 +24,8 @@ intervals), the stage's wall time on the host clock with the device
 synchronised at its end, the idle time between operations, the busy
 share, and the ten operations that take the most device time.  Each
 stage is also timed without the profiler, for what the instrumentation
-costs.
+costs.  The host half of LF + CDEF is timed too, split into the
+deblocking maps (`_lf_size_maps`), the CDEF maps and the upload.
 
 With --batch, it profiles the multi-stream postfilter instead: one batch
 of SLOTS (default 8) 1080p key frames, LF and CDEF not yet applied, half
@@ -35,7 +37,8 @@ pass (`postfilter_apply` over a stream axis, as
 (as `batched_postfilter_loop` runs them), both on uploaded inputs.
 
 `lf_cdef_ops(index, reps)` is the LF + CDEF half of the default mode as a
-function: chip_smoke.py reads the operation counts from it.
+function: chip_smoke.py reads the operation counts and the host split
+from it.
 """
 
 import os
@@ -51,6 +54,7 @@ import torch  # noqa: E402
 import easyav1_tpu_torch  # noqa: E402
 from easyav1_tpu_torch.native import pipe  # noqa: E402
 from easyav1_tpu_torch.parallel import multistream_av1  # noqa: E402
+from easyav1_tpu_torch.video.av1.recon import postfilter  # noqa: E402
 from easyav1_tpu_torch.video.av1.recon.postfilter import (  # noqa: E402
     postfilter_apply, postfilter_apply_plain, postfilter_maps, upload_maps)
 
@@ -79,7 +83,9 @@ def capture(path, index):
             dims = tuple((int(p.shape[0]), int(p.shape[1])) for p in planes)
             got.update(planes=[p.clone() for p in planes],
                        maps=postfilter_maps(hdr, seq, dims, grids_for, skip,
-                                            cdef, planes[0].device))
+                                            cdef, planes[0].device),
+                       host_ms=host_split(hdr, seq, dims, grids_for, skip,
+                                          cdef, planes[0].device))
         return orig[0](planes, hdr, seq, grids_for, skip, cdef,
                        want_deblocked)
 
@@ -112,6 +118,33 @@ def capture(path, index):
     if not got:
         raise RuntimeError(f"no inter frame {index} in {path}")
     return got
+
+
+def host_split(hdr, seq, dims, grids_for, skip, cdef, dev, reps=5):
+    """The host half of a frame's LF + CDEF (`postfilter_maps`), split,
+    in ms on the host clock, mean of `reps` calls: the deblocking maps
+    (`_lf_size_maps`, and `lf_host_maps` around it), the CDEF maps
+    (`cdef_host_maps`), the upload (`upload_maps`, synchronised) and the
+    whole (`postfilter_maps`)."""
+    bd = seq.color.bitdepth
+    parts = {
+        "lf_size_maps": lambda: any(hdr.lf.level)
+        and postfilter._lf_size_maps(hdr, bd, dims, grids_for),
+        "lf_host_maps": lambda: postfilter.lf_host_maps(hdr, seq, dims,
+                                                        grids_for),
+        "cdef_host_maps": lambda: postfilter.cdef_host_maps(hdr, seq, skip,
+                                                            cdef)}
+    out = {}
+    for k, fn in parts.items():
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out[k] = (time.perf_counter() - t0) * 1e3 / reps
+    host = postfilter.host_maps(hdr, seq, dims, grids_for, skip, cdef)
+    out["upload"] = wall_ms(lambda: upload_maps(host, dev), reps)
+    out["postfilter_maps"] = wall_ms(lambda: postfilter_maps(
+        hdr, seq, dims, grids_for, skip, cdef, dev), reps)
+    return out
 
 
 def wall_ms(fn, reps):
@@ -202,8 +235,11 @@ def lf_cdef_ops(index=5, reps=5):
         k = min(index, last or index)
         c = capture(path, k)
         planes, maps = c["planes"], c["maps"]
+        print(f"{title}, inter frame {k}: host maps, ms a frame (host "
+              "clock): " + ", ".join(f"{n} {v:.3f}"
+                                     for n, v in c["host_ms"].items()))
         out[title] = {
-            "lf": maps["lf"] is not None,
+            "lf": maps["lf"] is not None, "host_ms": c["host_ms"],
             "kernels": profile(f"{title}, inter frame {k}: LF + CDEF, hand "
                                "kernels (postfilter_apply)",
                                lambda: postfilter_apply(planes, maps), reps),
