@@ -101,9 +101,10 @@ Then:
    pass each through the C ABI and the client, and the postfilter
    pipe's stages (phase 3 sets the C ABI's fps beside the Python API's
    and the native C session's);
-3. times, in this run (CUDA events for kernels, the host clock around
-   synchronised work for stages): the strip kernel under the wavefront
-   and the sequential schedule at 1080p and 4K, 6a on a 1080p and a 4K
+3. times, in this run (CUDA events for kernels, the port's spans for
+   the stages: host time, the device not synchronised): the strip
+   kernel under the wavefront and the sequential schedule at 1080p and
+   4K, 6a on a 1080p and a 4K
    inter frame, 6b on a random OBMC program, their plain versions, the
    strip kernel on a 1080p inter frame's pred units beside its bound,
    deblocking + CDEF (the deblocking, the direction search and the CDEF
@@ -177,7 +178,7 @@ import numpy as np
 import torch
 
 import easyav1_tpu_torch
-from easyav1_tpu_torch import _build, capi, native
+from easyav1_tpu_torch import _build, capi, native, trace
 from easyav1_tpu_torch.api import frame_hash, native_session
 from easyav1_tpu_torch.audio.vorbis import VorbisDecoder
 from easyav1_tpu_torch.audio.vorbis.device import VorbisDeviceSynth
@@ -313,6 +314,25 @@ def reset_counts():
 
 def counts():
     return {name: fn.launches for name, fn in COUNTERS.items()}
+
+
+def traced_stages(make):
+    """Each covered frame's stages in a session's decode
+    (`decode_hashes`) under the port's tracer (`trace`), in decode order:
+    {stage: host seconds}, a stage's spans summed; no stage synchronises
+    the device."""
+    trace.start()
+    try:
+        decode_hashes(make)
+    finally:
+        spans = trace.stop()
+    frames = {sp.id: {} for sp in spans
+              if sp.name == "frame" and "declined" not in sp.attrs}
+    for sp in spans:
+        if sp.parent in frames:
+            d = frames[sp.parent]
+            d[sp.name] = d.get(sp.name, 0.0) + (sp.end_ns - sp.start_ns) * 1e-9
+    return list(frames.values())
 
 
 def decode_hashes(make, limit=None):
@@ -1668,18 +1688,13 @@ def inter_timings(caps, prog, dev):
           f"{tabs['n_tiles']} tiles: "
           f"{ms:.4f} ms, plain version {plain:.3f} ms, bound {bound:.4f} ms "
           f"({by})")
-    pipe.stage_log = []
-    try:
-        decode_hashes(lambda: easyav1_tpu_torch.EasyAV1(INTER_1080,
-                                                        device="cuda"))
-        log = [d for d in pipe.stage_log if "mc" in d]
-    finally:
-        pipe.stage_log = None
+    log = [d for d in traced_stages(lambda: easyav1_tpu_torch.EasyAV1(
+        INTER_1080, device="cuda")) if "mc" in d]
     stages = ("entropy", "plan", "prepare", "compose", "upload", "mc",
               "intra", "lf_cdef", "tail")
     med = {k: sorted(d[k] for d in log)[len(log) // 2] * 1e3 for k in stages}
-    print(f"1080p inter stream stages (ms, host clock, device synchronised "
-          f"at each stage's end), frame 1: "
+    print(f"1080p inter stream stages (ms, host spans, the device not "
+          f"synchronised), frame 1: "
           + ", ".join(f"{k} {log[0][k] * 1e3:.3f}" for k in stages))
     print(f"  median over its {len(log)} inter frames: "
           + ", ".join(f"{k} {med[k]:.3f}" for k in stages)
@@ -2056,31 +2071,21 @@ def stage_timings(inp, dev):
                          ("film grain", fg_bytes)):
         print(f"  {name}: {nbytes / 1e6:.3f} MB, byte bound "
               f"{nbytes / HBM_BYTES_PER_S * 1e6:.3f} us")
-    pipe.stage_log = []
-    try:
-        decode_hashes(lambda: easyav1_tpu_torch.EasyAV1(LR_GRAIN_1080,
-                                                        device="cuda"))
-        log = [d for d in pipe.stage_log if "mc" in d]
-        key = pipe.stage_log[0]
-    finally:
-        pipe.stage_log = None
+    every = traced_stages(lambda: easyav1_tpu_torch.EasyAV1(
+        LR_GRAIN_1080, device="cuda"))
+    log, key = [d for d in every if "mc" in d], every[0]
     stages = ("entropy", "plan", "prepare", "compose", "upload", "mc",
               "intra", "lf_cdef", "sr", "lr", "tail", "grain")
     med = {k: sorted(d.get(k, 0.0) for d in log)[len(log) // 2] * 1e3
            for k in stages}
-    print("1080p LR + grain stream stages (ms, host clock, device "
-          "synchronised at each stage's end), key frame: "
+    print("1080p LR + grain stream stages (ms, host spans, the device "
+          "not synchronised), key frame: "
           + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in key.items()))
     print(f"  median over its {len(log)} inter frames: "
           + ", ".join(f"{k} {med[k]:.3f}" for k in stages)
           + f"; total {sum(med.values()):.3f}")
-    pipe.stage_log = []
-    try:
-        decode_hashes(lambda: easyav1_tpu_torch.EasyAV1(
-            os.path.join(SMOKE, "superres_lr_1920x128.webm"), device="cuda"))
-        log = list(pipe.stage_log)
-    finally:
-        pipe.stage_log = None
+    log = traced_stages(lambda: easyav1_tpu_torch.EasyAV1(
+        os.path.join(SMOKE, "superres_lr_1920x128.webm"), device="cuda"))
     print("superres + LR 1920x128 key frames, stages of the last (ms): "
           + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in log[-1].items()))
     _, port_s = decode_hashes(
@@ -2163,19 +2168,15 @@ def hbd_timings(key, c, prog, dev):
     print(f"frame hash of a 4K 10-bit frame ({nbytes / 1e6:.2f} MB): kernel "
           f"{ms:.4f} ms, plain version {plain:.4f} ms, bound "
           f"{bound * 1e3:.4f} us ({by})")
-    pipe.stage_log = []
-    try:
-        decode_hashes(lambda: easyav1_tpu_torch.EasyAV1(HBD_4K, device="cuda"))
-        log = [d for d in pipe.stage_log if "mc" in d]
-        key_log = pipe.stage_log[0]
-    finally:
-        pipe.stage_log = None
+    every = traced_stages(lambda: easyav1_tpu_torch.EasyAV1(
+        HBD_4K, device="cuda"))
+    log, key_log = [d for d in every if "mc" in d], every[0]
     stages = ("entropy", "plan", "prepare", "compose", "upload", "mc",
               "intra", "lf_cdef", "lr", "tail")
     med = {k: sorted(d.get(k, 0.0) for d in log)[len(log) // 2] * 1e3
            for k in stages}
-    print("4K 10-bit stream stages (ms, host clock, device synchronised at "
-          "each stage's end), key frame: "
+    print("4K 10-bit stream stages (ms, host spans, the device not "
+          "synchronised), key frame: "
           + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in key_log.items()))
     print(f"  median over its {len(log)} inter frames: "
           + ", ".join(f"{k} {med[k]:.3f}" for k in stages)
@@ -2241,8 +2242,8 @@ def _median(values):
 def compose_stages():
     """Phase 3: on the three bench streams, with the host C composer and
     with the device composer: the median stages "prepare", "pack",
-    "compose" and "upload" and the frame's total (ms, host clock, the
-    device synchronised at each stage's end) over the inter frames (all
+    "compose" and "upload" and the frame's total (ms, host spans, the
+    device not synchronised) over the inter frames (all
     frames of the intra stream) and on the key frame; the bytes of the
     residual uploaded a frame (int16 planes, or packed records and coded
     rows); and the port's fps in each mode beside the native C
@@ -2262,13 +2263,10 @@ def compose_stages():
                 return upload(self, fields, resid, masks, schedule)
 
             IntraRecon.upload = spy
-            pipe.stage_log = []
             try:
-                decode_hashes(lambda: easyav1_tpu_torch.EasyAV1(
+                log = traced_stages(lambda: easyav1_tpu_torch.EasyAV1(
                     path, device="cuda", host_residual=host))
-                log = list(pipe.stage_log)
             finally:
-                pipe.stage_log = None
                 IntraRecon.upload = upload
             check(len(log) == len(sizes) == n,
                   f"{name} {mode}: {len(log)} frames timed")
@@ -2536,19 +2534,14 @@ def capi_fps(c_abi, composer_fps):
 def postfilter_stages():
     """The postfilter pipe's stages through the Python API
     (`pipe="postfilter"`), median ms a frame over each stream's frames
-    (host clock, the device synchronised at each stage's end), on the
-    streams of POSTFILTER_STREAMS without superres."""
+    (host spans, the device not synchronised), on the streams of
+    POSTFILTER_STREAMS without superres."""
     out = {}
     for name, path, n in POSTFILTER_STREAMS:
         if name.startswith("superres"):
             continue
-        pipe.stage_log = []
-        try:
-            decode_hashes(lambda: easyav1_tpu_torch.EasyAV1(
-                path, device="cuda", pipe="postfilter"))
-            log = list(pipe.stage_log)
-        finally:
-            pipe.stage_log = None
+        log = traced_stages(lambda: easyav1_tpu_torch.EasyAV1(
+            path, device="cuda", pipe="postfilter"))
         check(len(log) == n, f"postfilter stages {name}: {len(log)} frames")
         names = [k for k in ("entropy", "recon", "upload", "lf_cdef", "lr",
                              "tail", "grain") if any(k in d for d in log)]

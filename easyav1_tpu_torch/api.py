@@ -27,6 +27,7 @@ decodes ahead of `position`.
 
 from __future__ import annotations
 
+import itertools
 import os
 import threading
 import time
@@ -35,6 +36,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from easyav1_tpu_torch import trace
 from easyav1_tpu_torch.container import webm as W
 from easyav1_tpu_torch.container.webm import Packet, TrackType, WebMDemuxer
 from easyav1_tpu_torch.io.stream import Stream, open_stream
@@ -162,6 +164,9 @@ class EasyAV1:
         # and audio decode genuinely overlap video decode on multicore
         # hosts.
         self._vwork: List[Packet] = []
+        # each video packet handed to the worker is numbered: the frame
+        # its spans serve (`trace`)
+        self._packet_ids = itertools.count()
         self._vwork_cv = threading.Condition()
         self._vworker_busy = False
         self._vthread_stop = False
@@ -318,6 +323,7 @@ class EasyAV1:
     # ------------------------------------------------------------------
     # packet machinery (parity: easyav1.c:1904-2132)
 
+    @trace.spanned("demux")
     def _prepare_new_packet(self) -> bool:
         """Pull one packet from the demuxer into the right queue.
         Returns False at end of stream."""
@@ -397,7 +403,8 @@ class EasyAV1:
                 pkt = self._vwork.pop(0)
                 self._vworker_busy = True
             try:
-                self._decode_video_packet(pkt)
+                with trace.span("decode", frame=pkt.seq, cause=pkt.cause):
+                    self._decode_video_packet(pkt)
             finally:
                 with self._vwork_cv:
                     pkt.decoded = True
@@ -413,8 +420,14 @@ class EasyAV1:
             self._vthread.start()
 
     def _queue_video_packet(self, pkt: Packet) -> None:
+        """Hands a video packet to the worker, numbered, with the span
+        that handed it (its decode span's cause)."""
         self._ensure_vthread()
         pkt.decoded = False
+        pkt.seq = next(self._packet_ids)
+        trace.tag(frame=pkt.seq)
+        sp = trace.current()
+        pkt.cause = None if sp is None else sp.id
         with self._vwork_cv:
             self._vwork.append(pkt)
             self._vwork_cv.notify_all()
@@ -425,7 +438,7 @@ class EasyAV1:
         packet.decoded (easyav1.c:2567-2589), so decode_next's side
         effects (frame queue, frames-processed counter) are visible
         when it returns."""
-        with self._vwork_cv:
+        with trace.span("wait", frame=pkt.seq), self._vwork_cv:
             while not getattr(pkt, "decoded", True):
                 self._vwork_cv.wait(0.005)
 
@@ -434,7 +447,7 @@ class EasyAV1:
         reference pause_video_decoder_thread easyav1.c:2222)."""
         if self._vthread is None:
             return
-        with self._vwork_cv:
+        with trace.span("wait"), self._vwork_cv:
             while self._vwork or self._vworker_busy:
                 self._vwork_cv.notify_all()
                 self._vwork_cv.wait(0.005)
@@ -453,6 +466,7 @@ class EasyAV1:
         with self._playback_lock:
             return self._decode_next_locked()
 
+    @trace.spanned("decode_next")
     def _decode_next_locked(self,
                             fire_callbacks: bool = True) -> EasyAV1Status:
         if self._status.is_error:
@@ -613,6 +627,7 @@ class EasyAV1:
             return bool(self._frame_queue
                         and self._frame_queue[0].timestamp <= self._position)
 
+    @trace.spanned("get_video_frame")
     def get_video_frame(self) -> Optional[VideoFrame]:
         """Pull the next displayable frame (easyav1.c:3509-3571): head of
         queue only if its timestamp has been reached."""
@@ -710,6 +725,7 @@ class EasyAV1:
     def seek_backward(self, offset_ms: int) -> EasyAV1Status:
         return self.seek_to_timestamp(max(0, self._position - offset_ms))
 
+    @trace.spanned("seek")
     def _do_seek(self, timestamp_ms: int, fast: bool) -> EasyAV1Status:
         """Two-pass cue seek (easyav1.c:2961-3206):
         pass 0 scans from the cue cluster for the last keyframe <= target

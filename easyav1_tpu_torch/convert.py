@@ -24,6 +24,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from easyav1_tpu_torch import trace
 from easyav1_tpu_torch.video.av1 import tables as T
 from easyav1_tpu_torch.video.av1.recon import cdef_torch
 
@@ -57,9 +58,11 @@ def reference_tables() -> Dict[str, np.ndarray]:
 
 def from_reference(arrays: Mapping[str, np.ndarray],
                    device) -> Dict[str, torch.Tensor]:
-    """numpy arrays -> contiguous tensors of the same dtype on `device`."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in arrays.items()}
+    """numpy arrays -> contiguous tensors of the same dtype on `device`
+    (their bytes added to the open span's "h2d_bytes", `trace.add`)."""
+    host = {k: np.ascontiguousarray(v) for k, v in arrays.items()}
+    trace.add(h2d_bytes=sum(v.nbytes for v in host.values()))
+    return {k: torch.from_numpy(v).to(device) for k, v in host.items()}
 
 
 @functools.lru_cache(maxsize=None)

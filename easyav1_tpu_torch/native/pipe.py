@@ -28,13 +28,13 @@ from __future__ import annotations
 
 import ctypes
 import threading
-import time
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from easyav1_tpu_torch import native as nat
+from easyav1_tpu_torch import trace
 from easyav1_tpu_torch.container.webm import TrackType, WebMDemuxer
 from easyav1_tpu_torch.video.av1.recon.inter_exec import InterRecon
 from easyav1_tpu_torch.video.av1.recon.inter_mc import sample_dtype
@@ -56,39 +56,10 @@ def _count(fallback: bool) -> None:
         stats["fallbacks"] += int(fallback)
 
 
-# When a list, each frame the pipe covers appends {stage: wall seconds}
-# (the device synchronised at every stage's end): "entropy", "plan",
-# "prepare", "pack", "compose", "upload", "mc", "intra", "lf_cdef", "sr",
-# "lr", "tail", "grain" (the last four only where the frame has them);
-# on the postfilter pipe "entropy", "recon" (the C recon), "upload",
-# "lf_cdef", "lr", "tail", "grain".
-# "compose" is the residual composer: the host C composer inside the
-# host prepare, or the device composer's kernel after the upload;
-# "pack" is the device composer's host packing of the coded rows
-# (`records.pack_coeff_rows`).
-# None: off.
-stage_log: Optional[list] = None
-
-
-class _Stages:
-    """The stage clock of one frame (see `stage_log`)."""
-
-    def __init__(self):
-        self.t = {} if stage_log is not None else None
-        self.t0 = time.perf_counter()
-
-    def mark(self, name: str, device=None) -> None:
-        if self.t is None:
-            return
-        if device is not None and device.type == "cuda":
-            torch.cuda.synchronize(device)
-        t = time.perf_counter()
-        self.t[name] = self.t.get(name, 0.0) + t - self.t0
-        self.t0 = t
-
-    def close(self) -> None:
-        if self.t is not None and stage_log is not None:
-            stage_log.append(self.t)
+# The stage clock of a frame (`trace.Stages`): its marks name the stages
+# (see `trace`).  The benchmark's traced run stands a subclass of its own
+# in for this name, so the pipe makes each clock through it.
+_Stages = trace.Stages
 
 
 class LazyPlanes:
@@ -116,7 +87,9 @@ class LazyPlanes:
 
     def _mat(self):
         if self._np is None:
-            self._np = [d.cpu().numpy() for d in self._devs]
+            with trace.span("download"):
+                self._np = [d.cpu().numpy() for d in self._devs]
+                trace.add(d2h_bytes=sum(a.nbytes for a in self._np))
         return self._np
 
     def __len__(self):
@@ -154,18 +127,22 @@ class DevRef:
         """The host plane, uint16, C-contiguous, at least lh x lw."""
         if self._host is None:
             planes, i = self._lazy
-            got = planes[i] if planes.materialised \
-                else self._dev.cpu().numpy()
+            if planes.materialised:
+                got = planes[i]
+            else:
+                got = self._dev.cpu().numpy()
+                trace.add(d2h_bytes=got.nbytes)
             self._host = got.astype(np.uint16)
         return self._host
 
     def tensor(self, device: torch.device) -> torch.Tensor:
         """The [lh, lw] plane on `device`, of type `dtype`."""
         if self._dev is None or self._dev.device != device:
-            h = self.host()[:self.lh, :self.lw]
-            self._dev = torch.from_numpy(np.ascontiguousarray(
-                h, np.uint8 if self.dtype == torch.uint8 else np.uint16)
-            ).to(device)
+            h = np.ascontiguousarray(
+                self.host()[:self.lh, :self.lw],
+                np.uint8 if self.dtype == torch.uint8 else np.uint16)
+            self._dev = torch.from_numpy(h).to(device)
+            trace.add(h2d_bytes=h.nbytes)
         return self._dev
 
 
@@ -188,7 +165,7 @@ def export_units(lib, hdr, out, rp) -> Optional[np.ndarray]:
     return units[:n_out.value] if rc == 0 else None
 
 
-def intra_inputs(lib, seq, hdr, out, bufs, rp, device, clock=None,
+def intra_inputs(lib, seq, hdr, out, bufs, rp, device, clock,
                  host_residual=True) -> Optional[dict]:
     """The device inputs of an intra frame, or None when the executor
     declines it: {"recon": IntraRecon, "fields", "resid": per-plane
@@ -196,10 +173,11 @@ def intra_inputs(lib, seq, hdr, out, bufs, rp, device, clock=None,
     postfilter_frame's (grids_for, skip grid, CDEF index grid), "units":
     the pred-unit count, "records": the uploaded (txs, coeffs,
     class_offsets) the device composer read (`records.pack_coeff_rows`),
-    or None with `host_residual`}."""
-    clock = clock or _Stages()
+    or None with `host_residual`}.  clock: the frame's `_Stages`, which
+    is told why a frame is declined."""
     units = export_units(lib, hdr, out, rp)
     if units is None:
+        clock.decline("export")
         return None
     ir = IntraRecon(hdr.mi_rows, hdr.mi_cols, seq.color.subsampling_x,
                     seq.color.subsampling_y, seq.color.bitdepth,
@@ -213,12 +191,14 @@ def intra_inputs(lib, seq, hdr, out, bufs, rp, device, clock=None,
                       clock=clock)
     clock.mark("prepare")
     if prep is None:
+        clock.decline("prepare")
         return None
     fields, records, _masks, schedule = ir.upload(*prep)
-    clock.mark("upload", device)
+    clock.mark("upload")
     resid = ir.compose(records)
-    clock.mark("compose", device)
+    clock.mark("compose")
     if resid is None:
+        clock.decline("composer")
         return None
     return {"recon": ir, "fields": fields, "resid": resid,
             "schedule": schedule,
@@ -240,7 +220,7 @@ def _finish(dev, seq, hdr, out, bufs, maps, clock):
                  and out.n_lr_units > 0)
     res = postfilter_frame(dev, hdr, seq, *maps, want_deblocked=lr_on)
     dev, debl = res if lr_on else (res, None)
-    clock.mark("lf_cdef", device)
+    clock.mark("lf_cdef")
     if getattr(hdr, "use_superres", False):
         ssx, bd = seq.color.subsampling_x, seq.color.bitdepth
 
@@ -251,11 +231,11 @@ def _finish(dev, seq, hdr, out, bufs, maps, clock):
                     for d, sx in zip(planes, sub)]
 
         dev, debl = up(dev), up(debl) if lr_on else None
-        clock.mark("sr", device)
+        clock.mark("sr")
     if lr_on:
         dev = LoopRestoration(hdr, seq, lr_plan(out, bufs),
                               seq.color.bitdepth).apply(dev, debl)
-        clock.mark("lr", device)
+        clock.mark("lr")
     return dev
 
 
@@ -277,12 +257,12 @@ def _tail(dev, seq, hdr, resident, grain, clock):
     planes = LazyPlanes(clean, eager=not (resident or grained))
     refs = [(DevRef(c.shape[1], c.shape[0], dev=c, lazy=(planes, p)),
              c.shape[1], c.shape[0]) for p, c in enumerate(clean)]
-    clock.mark("tail", clean[0].device)
+    clock.mark("tail")
     if grained:
         noisy = grain(fg, seq, clean)
-        clock.mark("grain", clean[0].device)
+        clock.mark("grain")
         planes = LazyPlanes(noisy, eager=not resident)
-        clock.mark("tail", clean[0].device)
+        clock.mark("tail")
     return planes, refs
 
 
@@ -296,7 +276,7 @@ def _intra_frame(lib, seq, hdr, out, bufs, rp, device, clock,
     if inp is None:
         return None
     dev = inp["recon"].launch(inp["fields"], inp["resid"], inp["schedule"])
-    clock.mark("intra", device)
+    clock.mark("intra")
     return _finish(dev, seq, hdr, out, bufs, inp["maps"], clock)
 
 
@@ -325,9 +305,11 @@ def _inter_frame(lib, seq, hdr, out, bufs, rp, refs, device, clock,
                              bsize_g=bufs["grids"]["bsize"])
     clock.mark("plan")
     if plan is None:
+        clock.decline("planner")
         return None
     units = export_units(lib, hdr, out, rp)
     if units is None:
+        clock.decline("export")
         return None
     ir = InterRecon(hdr.mi_rows, hdr.mi_cols, seq.color.subsampling_x,
                     seq.color.subsampling_y, seq.color.bitdepth,
@@ -340,19 +322,21 @@ def _inter_frame(lib, seq, hdr, out, bufs, rp, refs, device, clock,
                       clock=clock)
     clock.mark("prepare")
     if prep is None:
+        clock.decline("prepare")
         return None
     fields, resid, masks, schedule = ir.upload(*prep)
     dev_refs = [[refs[s][p][0].tensor(device) for s in plan["slots"]]
                 for p in range(seq.color.num_planes)]
-    clock.mark("upload", device)
+    clock.mark("upload")
     resid = ir.compose(resid)
-    clock.mark("compose", device)
+    clock.mark("compose")
     if resid is None:
+        clock.decline("composer")
         return None
     dev = ir.motion(resid, plan, dev_refs)
-    clock.mark("mc", device)
+    clock.mark("mc")
     dev = ir.intra(dev, fields, resid, masks, schedule)
-    clock.mark("intra", device)
+    clock.mark("intra")
     return _finish(dev, seq, hdr, out, bufs,
                    (nat._grids_exporter(lib, rp, out), bufs["grids"]["skip"],
                     bufs["cdef"]), clock)
@@ -389,8 +373,10 @@ def first_frame_inputs(path: str, device: torch.device,
     seq, hdr, tiles = be.captured
     lib = nat._load()
     out, bufs, _blob, _fp = nat._run_tiles(lib, seq, hdr, tiles)
-    inp = intra_inputs(lib, seq, hdr, out, bufs, nat._build_rp(seq, hdr),
-                       device, host_residual=host_residual)
+    with _Stages() as clock:
+        inp = intra_inputs(lib, seq, hdr, out, bufs,
+                           nat._build_rp(seq, hdr), device, clock,
+                           host_residual)
     if inp is None:
         return None
     grids_for, skip, cdef = inp["maps"]
@@ -442,9 +428,12 @@ def _postfilter_frame(lib, seq, hdr, out, bufs, fp_rc, rp, refs, device,
     del keep_refs
     clock.mark("recon")
     if planes is None:
+        clock.decline("recon")
         return None
-    dev = [torch.from_numpy(p.astype(np.int32)).to(device) for p in planes]
-    clock.mark("upload", device)
+    host = [p.astype(np.int32) for p in planes]
+    dev = [torch.from_numpy(p).to(device) for p in host]
+    trace.add(h2d_bytes=sum(p.nbytes for p in host))
+    clock.mark("upload")
     return _finish(dev, seq, hdr, out, bufs,
                    (nat._grids_exporter(lib, rp, out), bufs["grids"]["skip"],
                     bufs["cdef"]), clock)
@@ -517,41 +506,46 @@ def decode_and_recon(seq, hdr, tiles: List[bytes], device: torch.device,
     host_residual: the host C composer makes the residual planes (the
     default), or the device composer (`itx_torch.compose_residual`)."""
     lib = nat._load()
-    clock = _Stages()
     if not hdr.frame_is_intra and (
             refs is None or any(refs[s] is None
                                 for s in set(hdr.ref_frame_idx))):
         return None
-    res = nat._run_tiles(lib, seq, hdr, tiles, cdf_in=cdf_in,
-                         want_cdf=want_cdf, tpl=tpl, threads=threads)
-    if res is None:
-        return None
-    out, bufs, blob, (fp_rc, keep_fp) = res
-    clock.mark("entropy")
-    rp = nat._build_rp(seq, hdr)
-    mv_grids = None
-    if not hdr.frame_is_intra:
-        mv_grids = (bufs["ref0"], bufs["ref1"], bufs["mvs"])
-    got = None
-    if pipe == "postfilter":
-        if not getattr(hdr, "use_superres", False):
-            got = _postfilter_frame(lib, seq, hdr, out, bufs, fp_rc, rp,
-                                    refs, device, clock)
-    elif covers(seq, hdr):
-        got = (_intra_frame(lib, seq, hdr, out, bufs, rp, device, clock,
-                            host_residual)
-               if hdr.frame_is_intra else
-               _inter_frame(lib, seq, hdr, out, bufs, rp, refs, device,
-                            clock, host_residual))
-    if got is not None:
-        got = _tail(got, seq, hdr, resident, grain, clock)
-        clock.close()
-    _count(fallback=got is None)
-    if got is None:
-        rfl, keep_refs = _c_refs(None if hdr.frame_is_intra else refs)
-        got = _c_recon(lib, seq, hdr, out, fp_rc, rp, rfl)
-        del keep_refs
-    del keep_fp
+    with _Stages() as clock:
+        clock.tag(kind="key" if hdr.frame_is_intra else "inter")
+        res = nat._run_tiles(lib, seq, hdr, tiles, cdf_in=cdf_in,
+                             want_cdf=want_cdf, tpl=tpl, threads=threads)
+        if res is None:
+            return None
+        out, bufs, blob, (fp_rc, keep_fp) = res
+        clock.mark("entropy")
+        rp = nat._build_rp(seq, hdr)
+        mv_grids = None
+        if not hdr.frame_is_intra:
+            mv_grids = (bufs["ref0"], bufs["ref1"], bufs["mvs"])
+        got = None
+        if pipe == "postfilter":
+            if getattr(hdr, "use_superres", False):
+                clock.decline("superres")
+            else:
+                got = _postfilter_frame(lib, seq, hdr, out, bufs, fp_rc, rp,
+                                        refs, device, clock)
+        elif not covers(seq, hdr):
+            clock.decline("bit depth")
+        else:
+            got = (_intra_frame(lib, seq, hdr, out, bufs, rp, device, clock,
+                                host_residual)
+                   if hdr.frame_is_intra else
+                   _inter_frame(lib, seq, hdr, out, bufs, rp, refs, device,
+                                clock, host_residual))
+        if got is not None:
+            got = _tail(got, seq, hdr, resident, grain, clock)
+        _count(fallback=got is None)
+        if got is None:
+            rfl, keep_refs = _c_refs(None if hdr.frame_is_intra else refs)
+            got = _c_recon(lib, seq, hdr, out, fp_rc, rp, rfl)
+            del keep_refs
+            clock.mark("recon")
+        del keep_fp
     if got is None:
         return None
     planes, ref_triples = got

@@ -29,7 +29,7 @@ import dataclasses
 
 import numpy as np
 
-from easyav1_tpu_torch import native
+from easyav1_tpu_torch import native, trace
 from easyav1_tpu_torch.container.webm import TrackInfo
 from easyav1_tpu_torch.native import pipe
 from easyav1_tpu_torch.native.cdf_layout import cdf_to_blob
@@ -113,8 +113,9 @@ class AV1Backend:
         tile_payloads: List[bytes] = []
         for obu in split_obus(data):
             if obu.type == C.OBU_SEQUENCE_HEADER:
-                self.seq = parse_sequence_header(obu.payload)
-                self.hp = HeaderParser(self.seq)
+                with trace.span("headers"):
+                    self.seq = parse_sequence_header(obu.payload)
+                    self.hp = HeaderParser(self.seq)
             elif obu.type == C.OBU_FRAME_HEADER:
                 hdr = self._parse_frame_header(obu.payload)
                 if hdr.show_existing_frame:
@@ -145,6 +146,7 @@ class AV1Backend:
                     tile_payloads = []
         return out
 
+    @trace.spanned("headers")
     def _parse_frame_header(self, payload: bytes) -> FrameHeader:
         if self.hp is None:
             raise AV1DecodeError("no sequence header before frame header")
@@ -161,7 +163,8 @@ class AV1Backend:
     def _decode_frame(self, hdr: FrameHeader, tile_payloads: List[bytes],
                       ts: int) -> Optional[VideoFrame]:
         seq = self.seq
-        tiles = self._split_tiles(hdr, tile_payloads)
+        with trace.span("headers"):
+            tiles = self._split_tiles(hdr, tile_payloads)
         # entropy context: inherit the primary ref's saved state (spec
         # load_cdfs) or reset to the per-q defaults, as packed blobs
         init_blob: Optional[bytes] = None
@@ -173,9 +176,10 @@ class AV1Backend:
         # temporal mv projection (host-side numpy)
         tpl = None
         if hdr.use_ref_frame_mvs:
-            tpl = setup_motion_field(
-                hdr, seq, [s if s.valid else None for s in self.hp.refs],
-                self._ref_tmvs)
+            with trace.span("motion_field"):
+                tpl = setup_motion_field(
+                    hdr, seq, [s if s.valid else None for s in self.hp.refs],
+                    self._ref_tmvs)
         if self.device is None:
             res = native.decode_and_recon_native(
                 seq, hdr, tiles, cdf_in=init_blob, want_cdf=want_cdf,
@@ -199,8 +203,9 @@ class AV1Backend:
         frame = self._make_frame(planes, hdr, ts)
         # per-8x8 motion storage for later temporal projection
         if nat_grids is not None:
-            tmvs = save_tmvs(hdr, nat_grids[0], nat_grids[1],
-                             nat_grids[2])
+            with trace.span("tmvs"):
+                tmvs = save_tmvs(hdr, nat_grids[0], nat_grids[1],
+                                 nat_grids[2])
         else:
             h8 = (hdr.mi_rows + 1) >> 1
             w8 = (hdr.mi_cols + 1) >> 1

@@ -41,7 +41,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from easyav1_tpu_torch import convert
+from easyav1_tpu_torch import convert, trace
 from easyav1_tpu_torch.video.av1.recon.mc_plan import (
     NPR, NS, NW, P_MIDX, P_MODE, P_PRED0, P_PRED1, P_VALID, P_W0, P_W1, P_X,
     P_Y, S_FH, S_FV, S_IX, S_IY, S_NORES, S_SLOT, S_VALID, S_X, S_Y, W_ALPHA,
@@ -576,6 +576,7 @@ def upload(tabs: Dict, dev) -> Dict:
     """A kernel's host tables (`mc_tables`, `obmc_tables`) on the card:
     {"buf": the buffer, in one copy that does not wait where the host
     tensor is pinned, "layout", "n_tiles"}."""
+    trace.add(h2d_bytes=tabs["host"].nbytes)
     return {"buf": tabs["host"].to(dev, non_blocking=True),
             "layout": tabs["layout"], "n_tiles": tabs["n_tiles"]}
 

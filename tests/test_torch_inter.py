@@ -27,6 +27,7 @@ import torch
 import easyav1_tpu_torch
 from easyav1_tpu.video.av1.recon import jax_exec as JX
 from easyav1_tpu.video.av1.recon import mc_jax as MJ
+from easyav1_tpu_torch import trace
 from easyav1_tpu_torch.api import native_session
 from easyav1_tpu_torch.native import pipe
 from easyav1_tpu_torch.unit_programs import (
@@ -562,18 +563,22 @@ def test_interintra_stream_vs_native(monkeypatch):
     assert seen["ii"] >= 10
 
 
-def test_stage_log_times_every_stage(monkeypatch):
-    """With `pipe.stage_log` a list, every covered frame logs its
-    stages; inter frames log the MC stages too."""
-    monkeypatch.setattr(pipe, "stage_log", [])
-    _port(SMOKE_STREAM)
-    log = pipe.stage_log
-    assert len(log) == easyav1_tpu_torch.stats["frames"] == 8
-    assert set(log[0]) == {"entropy", "prepare", "compose", "upload",
-                           "intra", "lf_cdef", "tail"}
-    assert all(set(d) == {"entropy", "plan", "prepare", "compose", "upload",
-                          "mc", "intra", "lf_cdef", "tail"} for d in log[1:])
-    assert all(v >= 0 for d in log for v in d.values())
+def test_stage_log_times_every_stage():
+    """Traced (`trace.start()`), every covered frame has a "frame" span
+    with a span a stage; inter frames have the MC stages too."""
+    trace.start()
+    try:
+        _port(SMOKE_STREAM)
+    finally:
+        spans = trace.stop()
+    frames = [sp for sp in spans if sp.name == "frame"]
+    assert len(frames) == easyav1_tpu_torch.stats["frames"] == 8
+    stages = [{c.name for c in spans if c.parent == f.id} for f in frames]
+    assert stages[0] == {"entropy", "prepare", "compose", "upload",
+                         "intra", "lf_cdef", "tail"}
+    assert all(d == {"entropy", "plan", "prepare", "compose", "upload",
+                     "mc", "intra", "lf_cdef", "tail"} for d in stages[1:])
+    assert all(sp.end_ns >= sp.start_ns for sp in spans)
 
 
 # --------------------------------------- InterRecon against DeviceInterRecon

@@ -45,9 +45,8 @@ import torch
 import easyav1_tpu_torch
 from easyav1_tpu.video.av1.recon_ref import inverse_transform
 from easyav1_tpu.video.av1.tile import TxBlock
-from easyav1_tpu_torch import api
+from easyav1_tpu_torch import api, trace
 from easyav1_tpu_torch.container.webm import TrackType, WebMDemuxer
-from easyav1_tpu_torch.native import pipe
 from easyav1_tpu_torch.unit_programs import (random_tx_program,
                                              shaped_tx_program)
 from easyav1_tpu_torch.video.av1 import constants as C
@@ -591,18 +590,23 @@ def test_reference_setting_picks_the_composer(setting, device_composer,
 
 
 @pytest.mark.parametrize("host_residual", [True, False])
-def test_stage_clock_marks_compose(host_residual, monkeypatch):
-    """Every frame's stage times carry "compose" beside "prepare" and
+def test_stage_clock_marks_compose(host_residual):
+    """Every frame's stage spans carry "compose" beside "prepare" and
     "upload", in both modes, and "pack" with the device composer."""
-    monkeypatch.setattr(pipe, "stage_log", [])
-    _hashes(lambda: easyav1_tpu_torch.EasyAV1(
-        os.path.join(SMOKE, "hbd_10p.webm"), device="cpu",
-        host_residual=host_residual))
-    assert len(pipe.stage_log) == 4
-    for d in pipe.stage_log:
-        assert {"entropy", "prepare", "compose", "upload", "intra"} <= set(d)
+    trace.start()
+    try:
+        _hashes(lambda: easyav1_tpu_torch.EasyAV1(
+            os.path.join(SMOKE, "hbd_10p.webm"), device="cpu",
+            host_residual=host_residual))
+    finally:
+        spans = trace.stop()
+    frames = [sp for sp in spans if sp.name == "frame"]
+    assert len(frames) == 4
+    for f in frames:
+        d = {c.name for c in spans if c.parent == f.id}
+        assert {"entropy", "prepare", "compose", "upload", "intra"} <= d
         assert ("pack" in d) is not host_residual
-        assert all(v >= 0 for v in d.values())
+    assert all(sp.end_ns >= sp.start_ns for sp in spans)
 
 
 def _lossless_stream():
