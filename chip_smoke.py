@@ -7,7 +7,8 @@ once: the C decoder (gcc, `easyav1_tpu_torch/native`), the C ABI's
 library and its client executable (gcc, `easyav1_tpu_torch/capi`) and
 the CUDA kernels (nvcc, `easyav1_tpu_torch/csrc/intra_strip.cu`,
 `csrc/inter_mc.cu`, `csrc/frame_hash.cu`, `csrc/itx.cu`,
-`csrc/loopfilter.cu` and `csrc/cdef.cu`, whose ptxas reports it prints).
+`csrc/loopfilter.cu`, `csrc/cdef.cu` and `csrc/lr.cu`, whose ptxas
+reports it prints).
 Then:
 
 1. holds every kernel against its plain torch version on the card,
@@ -25,8 +26,13 @@ Then:
    bit-equal to the first (a race shows here); the frame hash kernel on
    seeded uint8 and uint16 planes of odd sizes, offsets and pitches
    against its plain version and `api.frame_hash`; the torch-ops stages
-   (superres upscale, loop restoration, film grain) on the card against
-   the same functions on the CPU, on seeded 1080p inputs; and the 10-
+   (superres upscale, film grain) on the card against the same functions
+   on the CPU, on seeded 1080p inputs; loop restoration
+   (`csrc/lr.cu`, every plane, one launch a frame) against
+   `LoopRestoration.apply_plain` on the card on seeded 1920x1080 8-bit
+   and 3840x2160 10-bit frames (`unit_programs.random_lr_case`: Wiener,
+   SGR and absent units), 1080p also against the plain version on the
+   CPU, with 10 runs of each bit-equal to the first; and the 10-
    and 12-bit instantiations: 6a and 6b on uint16 references of seeded
    random 10- and 12-bit MC programs at 1080p and at an odd size, with
    20 runs of each bit-equal to the first, the strip kernel on random
@@ -74,7 +80,9 @@ Then:
    inter frame, one of 6b a frame with OBMC blocks, and the LF + CDEF
    kernels as each frame's header asks (`pf_launches`: one deblocking
    launch when a plane deblocks, one direction search and one CDEF
-   filter when CDEF is on).  Then `decode_resident`
+   filter when CDEF is on), and one loop-restoration launch a frame
+   whose restoration restores a plane (`lr_restores`).  Then
+   `decode_resident`
    on every stream (at most RESIDENT_FRAMES frames of each): its device
    hashes equal `api.frame_hash` of the same frames pulled through the
    API, no plane is downloaded, and the hash kernel launches once a
@@ -97,7 +105,8 @@ Then:
    the 1080p LR + grain stream, bench_av1_intra_lf_1920x1080_8.webm,
    the 4K 10-bit stream and superres_lr_1920x128 hash-equal, with the
    superres frames, and only those, on the C path, no recon kernel
-   launched and the LF + CDEF kernels as the headers ask; with the fps of one
+   launched and the LF + CDEF and LR kernels as the headers ask; with
+   the fps of one
    pass each through the C ABI and the client, and the postfilter
    pipe's stages (phase 3 sets the C ABI's fps beside the Python API's
    and the native C session's);
@@ -118,8 +127,10 @@ Then:
    1080p inter stream's frames, and
    the port's fps beside the native C session's on both 1080p streams;
    the hash kernel on a 1080p frame beside its plain version and its
-   byte bound; superres, loop restoration and film grain on 1080p
-   planes; the stages of the 1080p loop-restoration and grain stream,
+   byte bound; superres and film grain on 1080p planes; the
+   loop-restoration kernel alone and its wrapper on the seeded 1080p
+   8-bit and 4K 10-bit frames beside its plain version and its byte
+   bound (`lr_bytes`); the stages of the 1080p loop-restoration and grain stream,
    and on it the port's fps, the native C session's and the resident
    decode's; on the 4K 10-bit stream the strip kernel on the key frame,
    the uint16 6a and the strip kernel on an inter frame, 6b on a random
@@ -190,8 +201,8 @@ from easyav1_tpu_torch.parallel import multistream_av1
 from easyav1_tpu_torch.parallel.mesh import MultiStreamVorbisSynth
 from easyav1_tpu_torch.unit_programs import (
     program_frame, random_ibc_program, random_interintra_program,
-    random_mc_program, random_postfilter_case, random_program,
-    random_tx_program, shaped_tx_program)
+    random_lr_case, random_mc_program, random_postfilter_case,
+    random_program, random_tx_program, shaped_tx_program)
 from easyav1_tpu_torch.video.av1 import itx_ref
 from easyav1_tpu_torch.video.av1 import tables as T
 from easyav1_tpu_torch.video.av1.recon import (cdef_torch, fg_torch, inter_mc,
@@ -246,11 +257,13 @@ COUNTERS = {"intra_strip": intra_strip.strip_exec_frame,
             "itx_compose": itx_torch.compose_residual,
             "deblock": lf_torch.lf_launch,
             "cdef_dirs": cdef_torch.dirs_launch,
-            "cdef_filter": cdef_torch.filter_launch}
-# the LF + CDEF kernels' counters; the others are the recon kernels'
+            "cdef_filter": cdef_torch.filter_launch,
+            "lr": lr_torch.lr_launch}
+# the LF + CDEF kernels' counters; the others but "lr" are the recon
+# kernels'
 PF_KERNELS = ("deblock", "cdef_dirs", "cdef_filter")
 KERNEL_SOURCES = ("intra_strip", "inter_mc", "frame_hash", "itx",
-                  "loopfilter", "cdef")
+                  "loopfilter", "cdef", "lr")
 # (seed, plane dims, bit depth) of the device composer's random
 # programs: 1080p 4:2:0 and an odd 4:4:4 size (crops at the right and
 # bottom edges), each with every legal (tx_size, tx_type) pair
@@ -1095,49 +1108,6 @@ def check_hash(dev):
     return err
 
 
-def lr_case(w, h, seed):
-    """A seeded loop-restoration frame at w x h, 4:2:0, 8 bits: (hdr,
-    seq, plan, planes, deblocked) with switchable luma (Wiener,
-    SGR and absent units interleaved), Wiener U and SGR
-    V, 64-pixel units, in mi-padded int32 planes."""
-    rng = np.random.default_rng(seed)
-    plan = SimpleNamespace(lr_type={}, lr_wiener={}, lr_sgr={})
-
-    def units(plane, pw, ph, kinds):
-        for urow in range(max((ph + 32) // 64, 1)):
-            for ucol in range(max((pw + 32) // 64, 1)):
-                kind = kinds[(urow + ucol) % len(kinds)]
-                key = (plane, urow, ucol)
-                if kind:
-                    plan.lr_type[key] = kind
-                if kind == 2:
-                    plan.lr_wiener[key] = [
-                        [0 if plane else int(rng.integers(-5, 11)),
-                         int(rng.integers(-23, 9)), int(rng.integers(-17, 47))]
-                        for _ in range(2)]
-                elif kind == 3:
-                    plan.lr_sgr[key] = (int(rng.integers(0, 16)),
-                                        int(rng.integers(-96, 32)),
-                                        int(rng.integers(-32, 96)))
-
-    cw, ch = (w + 1) >> 1, (h + 1) >> 1
-    units(0, w, h, (2, 3, 0))
-    units(1, cw, ch, (2,))
-    units(2, cw, ch, (3, 0))
-    ns = SimpleNamespace
-    hdr = ns(upscaled_width=w, frame_height=h, lr=ns(
-        uses_lr=True, frame_restoration_type=[1, 2, 3],
-        loop_restoration_size=[64, 64, 64]))
-    seq = ns(color=ns(subsampling_x=1, subsampling_y=1, num_planes=3,
-                      mono_chrome=False, bitdepth=8))
-    ah, aw = (h + 7) & ~7, (w + 7) & ~7
-    planes = [rng.integers(0, 256, d).astype(np.int32)
-              for d in ((ah, aw), (ah >> 1, aw >> 1), (ah >> 1, aw >> 1))]
-    debl = [np.clip(p + rng.integers(-2, 3, p.shape), 0, 255).astype(np.int32)
-            for p in planes]
-    return hdr, seq, plan, planes, debl
-
-
 def grain_case(seed):
     """Film grain parameters shaped like libaom's denoiser's: several
     luma points, lag 3, both chroma planes, overlap."""
@@ -1159,9 +1129,8 @@ def check_torch_stages(dev):
     """Phase 1: the stages this slice ports as exact torch ops, on the
     card against the same functions on the CPU, tolerance 0, on seeded
     1080p inputs: the superres upscale (luma 1280 -> 1920 and its
-    chroma, and an unaligned coded width), loop restoration over all
-    three planes, film grain over all three planes.  Returns the inputs
-    on the card, for the timings."""
+    chroma, and an unaligned coded width), film grain over all three
+    planes.  Returns the inputs on the card, for the timings."""
     cpu = torch.device("cpu")
     rng = np.random.default_rng(5)
     sr = []
@@ -1176,22 +1145,10 @@ def check_torch_stages(dev):
               f"vs CPU max_abs_err {e}")
         check(e == 0, "sr_torch differs between the card and the CPU")
         sr.append((plane.to(dev), src_w, dst_w))
-    hdr, seq, plan, planes, debl = lr_case(1920, 1080, 6)
-    lr = lr_torch.LoopRestoration(hdr, seq, plan, 8)
-
-    def run_lr(device):
-        return lr.apply([torch.from_numpy(p).to(device) for p in planes],
-                        [torch.from_numpy(p).to(device) for p in debl])
-
-    got, want = run_lr(dev), run_lr(cpu)
-    e = max_err([g.cpu() for g in got], want)
-    changed = sum(int((w != torch.from_numpy(p)).sum())
-                  for w, p in zip(want, planes))
-    print(f"loop restoration 1920x1080, {len(plan.lr_type)} units "
-          f"({len(plan.lr_wiener)} Wiener, {len(plan.lr_sgr)} SGR), "
-          f"{changed} pixels changed: card vs CPU max_abs_err {e}")
-    check(e == 0 and changed > 0, "lr_torch differs between card and CPU")
     fgp = grain_case(7)
+    seq = SimpleNamespace(color=SimpleNamespace(
+        subsampling_x=1, subsampling_y=1, num_planes=3, mono_chrome=False,
+        bitdepth=8))
     u8 = [torch.from_numpy(rng.integers(0, 256, d).astype(np.uint8))
           for d in ((1080, 1920), (540, 960), (540, 960))]
     got = fg_torch.FilmGrain(fgp, seq, 8, dev).apply([t.to(dev) for t in u8])
@@ -1201,9 +1158,112 @@ def check_torch_stages(dev):
     print(f"film grain 1920x1080, {changed} pixels changed: card vs CPU "
           f"max_abs_err {e}")
     check(e == 0 and changed > 0, "fg_torch differs between card and CPU")
-    return {"sr": sr, "lr": (lr, [torch.from_numpy(p).to(dev) for p in planes],
-                             [torch.from_numpy(p).to(dev) for p in debl]),
-            "fg": (fgp, seq, [t.to(dev) for t in u8])}
+    return {"sr": sr, "fg": (fgp, seq, [t.to(dev) for t in u8])}
+
+
+# (name, seed, width, height, bit depth) of the loop-restoration frames:
+# 4:2:0, Wiener, SGR and absent units interleaved in luma, Wiener U, SGR
+# and absent units in V, 64-pixel units, mi-padded planes
+LR_CASES = [("1920x1080 8-bit", 6, 1920, 1080, 8),
+            ("3840x2160 10-bit", 7, 3840, 2160, 10)]
+
+
+def check_lr(dev):
+    """Phase 1: the loop-restoration kernel (`csrc/lr.cu`, through
+    `LoopRestoration.apply`) against its plain version on the card,
+    exactly, on each of LR_CASES, one launch a frame, 10 runs bit-equal
+    to the first; 1080p also against the plain version on the CPU.
+    Returns the largest difference and {name: (lr, planes, snapshot)} on
+    the card, for the timings."""
+    err, inputs = 0, {}
+    for name, seed, w, h, bd in LR_CASES:
+        hdr, seq, plan, planes, debl = random_lr_case(seed, w, h, bd=bd)
+        lr = lr_torch.LoopRestoration(hdr, seq, plan, bd)
+        tp = [torch.from_numpy(p).to(dev) for p in planes]
+        td = [torch.from_numpy(d).to(dev) for d in debl]
+        before = lr_torch.lr_launch.launches
+        got = lr.apply(tp, td)
+        launched = lr_torch.lr_launch.launches - before
+        want = lr.apply_plain(tp, td)
+        e = max_err([g.cpu() for g in got], [x.cpu() for x in want])
+        if name.startswith("1920"):
+            e = max(e, max_err([g.cpu() for g in got], lr.apply(
+                [torch.from_numpy(p) for p in planes],
+                [torch.from_numpy(d) for d in debl])))
+        changed = sum(int((x.cpu() != torch.from_numpy(p)).sum())
+                      for x, p in zip(want, planes))
+        for _ in range(10):
+            again = lr.apply(tp, td)
+            e = max(e, max_err([a.cpu() for a in again],
+                               [g.cpu() for g in got]))
+        print(f"loop restoration {name}, {len(plan.lr_type)} units "
+              f"({len(plan.lr_wiener)} Wiener, {len(plan.lr_sgr)} SGR), "
+              f"{changed} samples changed: kernel vs plain max_abs_err {e}, "
+              f"{launched} launch")
+        check(e == 0 and changed > 0 and launched == 1,
+              f"lr kernel {name}: max_abs_err {e}, {changed} changed, "
+              f"{launched} launches")
+        err = max(err, e)
+        inputs[name] = (lr, tp, td)
+    return err, inputs
+
+
+def lr_bytes(lr, planes):
+    """The least bytes loop restoration moves: each plane that restores
+    read and written once (int32, as stored), and each row of the
+    deblocked snapshot that a stripe reads (two above and two below it,
+    clamped into the plane) read once."""
+    total = 0
+    for plane, ph, pw, sh, off, *_ in lr.unit_table()[0]:
+        rows = set()
+        for s in range(-(-(ph + off) // sh)):
+            ss = s * sh - off
+            se = ss + sh - 1
+            for y in range(ss - 3, se + 4):
+                yy = min(max(y, 0), ph - 1)
+                if yy < ss:
+                    rows.add(max(ss - 2, yy))
+                elif yy > se:
+                    rows.add(min(se + 2, yy))
+        total += 8 * planes[plane].numel() + 4 * pw * len(rows)
+    return total
+
+
+def lr_timings(inputs):
+    """Phase 3: the loop-restoration kernel alone (`lr_torch.frame_launch`
+    on the uploaded table) and its plain version on the card (CUDA
+    events, back to back) on LR_CASES, beside the byte bound (`lr_bytes`
+    at 3.35 TB/s), and the wrapper `lr.apply` with its host table and
+    upload (host clock to the device's end, median of 10): {name: {"ms",
+    "plain_ms", "bound_ms", "bound_by", "mbytes", "wrapper_ms"}}."""
+    out = {}
+    for name, (lr, planes, debl) in inputs.items():
+        dims, table = lr.unit_table()
+        ints = lr_torch.launch_dims(dims, planes, debl)
+        on = [d[0] for d in dims]
+        tab = torch.from_numpy(table).to(planes[0].device)
+        ms = cuda_ms(lambda: lr_torch.frame_launch(planes, debl, on, ints,
+                                                   tab, lr.bd), 20)
+        plain = cuda_ms(lambda: lr.apply_plain(planes, debl), 3)
+        walls = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lr.apply(planes, debl)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        nbytes = lr_bytes(lr, planes)
+        out[name] = {"ms": ms, "plain_ms": plain,
+                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "bound_by": "bytes", "mbytes": nbytes / 1e6,
+                     "wrapper_ms": _median(walls)}
+        print(f"loop restoration {name} (CUDA events): kernel {ms:.4f} ms, "
+              f"plain {plain:.3f} ms, bound {out[name]['bound_ms'] * 1e3:.3f}"
+              f" us ({nbytes / 1e6:.3f} MB), "
+              f"{ms / out[name]['bound_ms']:.2f}x the bound; the wrapper "
+              f"with its host table {out[name]['wrapper_ms']:.3f} ms "
+              f"(host clock)")
+    return out
 
 
 # name, path, frames shown, and the launches expected: the strip kernel
@@ -1328,15 +1388,38 @@ def pf_launches(lf, cdef, dims):
             "cdef_filter": int(cdef)}
 
 
+def lr_restores(lr):
+    """Whether a frame's `LoopRestoration` restores a plane, by the plain
+    version's maps: a plane whose frame type is not NONE and whose units
+    include a Wiener or SGR one."""
+    hl = getattr(lr.hdr, "lr", None)
+    if hl is None or not hl.uses_lr:
+        return False
+    return any(m["is_w"].any() or m["is_s"].any()
+               for m in (lr.stripe_params(p)[1]
+                         for p in range(lr.seq.color.num_planes)
+                         if hl.frame_restoration_type[p] != 0))
+
+
 class PostfilterCalls:
     """Within the block, the LF + CDEF launches that the frames whose
     maps a pipe makes (`postfilter.host_maps`, which every path that
     filters one frame calls) should cause, from each frame's header
-    (`pf_planes_on`, `pf_launches`), summed in `want`."""
+    (`pf_planes_on`, `pf_launches`), summed in `want`; and in `lr_want`
+    the loop-restoration launches, one a frame whose restoration
+    restores a plane (`lr_restores`, spying on `LoopRestoration.apply`,
+    which every path that restores calls)."""
 
     def __enter__(self):
         self.want, self.frames = dict.fromkeys(PF_KERNELS, 0), 0
         self.fn = postfilter.host_maps
+        self.lr_want, self.lr_apply = 0, lr_torch.LoopRestoration.apply
+
+        def lr_spy(lr, planes, deblocked):
+            self.lr_want += lr_restores(lr)
+            return self.lr_apply(lr, planes, deblocked)
+
+        lr_torch.LoopRestoration.apply = lr_spy
 
         def spy(hdr, seq, dims, *a, **k):
             for name, n in pf_launches(*pf_planes_on(hdr, seq, len(dims)),
@@ -1350,11 +1433,12 @@ class PostfilterCalls:
 
     def __exit__(self, *exc):
         postfilter.host_maps = self.fn
+        lr_torch.LoopRestoration.apply = self.lr_apply
 
 
 def recon_counts(c):
     """The recon kernels' counts of `counts()`, in COUNTERS order."""
-    return tuple(v for k, v in c.items() if k not in PF_KERNELS)
+    return tuple(v for k, v in c.items() if k not in PF_KERNELS + ("lr",))
 
 
 def pf_counts(c):
@@ -1393,13 +1477,13 @@ def main_path(streams, host_residual=True):
         itx_want = 0 if host_residual else composer.with_transforms
         check(stats["frames"] == want[0] == pf.frames
               and recon_counts(c) == want + (0, itx_want)
-              and pf_counts(c) == pf.want
+              and pf_counts(c) == pf.want and c["lr"] == pf.lr_want
               and len(composer.calls) == (0 if host_residual
                                           else stats["frames"]),
               f"{name}{mode}: launches {c}, want {want} (strip, 6a, 6b), "
-              f"{itx_want} device composer launches and LF + CDEF "
-              f"{pf.want} over {pf.frames} frames; composer calls "
-              f"{composer.calls}")
+              f"{itx_want} device composer launches, LF + CDEF "
+              f"{pf.want} and {pf.lr_want} LR over {pf.frames} frames; "
+              f"composer calls {composer.calls}")
         for k in total:
             total[k] += c[k]
         if not host_residual:
@@ -2045,8 +2129,6 @@ def stage_timings(inp, dev):
     sr_ms = cuda_ms(lambda: (sr_torch.upscale_plane(plane, src_w, dst_w, 8),
                              sr_torch.upscale_plane(*chroma, 8),
                              sr_torch.upscale_plane(*chroma, 8)), 10)
-    lr, planes, debl = inp["lr"]
-    lr_ms = cuda_ms(lambda: lr.apply(planes, debl), 5)
     fgp, seq, u8 = inp["fg"]
     t0 = time.perf_counter()
     fg = fg_torch.FilmGrain(fgp, seq, 8, dev)
@@ -2054,21 +2136,16 @@ def stage_timings(inp, dev):
     fg_host_ms = (time.perf_counter() - t0) * 1e3
     fg_ms = cuda_ms(lambda: fg.apply(u8), 5)
     print(f"torch-ops stages on seeded 1080p 4:2:0 planes (CUDA events): "
-          f"superres 1280 -> 1920 of three planes {sr_ms:.3f} ms, loop "
-          f"restoration of three planes {lr_ms:.3f} ms, film grain of three "
-          f"planes {fg_ms:.3f} ms after {fg_host_ms:.3f} ms of host "
-          f"templates and LUTs (host clock)")
+          f"superres 1280 -> 1920 of three planes {sr_ms:.3f} ms, film "
+          f"grain of three planes {fg_ms:.3f} ms after {fg_host_ms:.3f} ms "
+          f"of host templates and LUTs (host clock)")
     # byte bounds: each plane the stage reads read once, each plane it
     # writes written once (superres: int32 in and out, at the output
-    # width; LR: the planes and the deblocked snapshot in, int32 out;
-    # grain: the uint8 planes in and out)
+    # width; grain: the uint8 planes in and out)
     sr_bytes = sum(p.shape[0] * (p.shape[1] + dw) * 4
                    for p, _sw, dw in (inp["sr"][0], chroma, chroma))
-    lr_bytes = sum(3 * p.numel() * 4 for p in planes)
     fg_bytes = sum(2 * t.numel() for t in u8)
-    for name, nbytes in (("superres", sr_bytes), ("loop restoration",
-                                                  lr_bytes),
-                         ("film grain", fg_bytes)):
+    for name, nbytes in (("superres", sr_bytes), ("film grain", fg_bytes)):
         print(f"  {name}: {nbytes / 1e6:.3f} MB, byte bound "
               f"{nbytes / HBM_BYTES_PER_S * 1e6:.3f} us")
     every = traced_stages(lambda: easyav1_tpu_torch.EasyAV1(
@@ -2463,10 +2540,11 @@ def check_capi():
         check(stats == {"frames": want[0], "fallbacks": 0}
               and recon_counts(c) == want + (0, itx_want)
               and pf_counts(c) == pf.want and pf.frames == want[0]
+              and c["lr"] == pf.lr_want
               and (itx_want > 0 or not device_composer),
               f"C ABI {name}{mode}: stats {stats}, launches {c}, want "
-              f"{want} (strip, 6a, 6b), {itx_want} composer launches and "
-              f"LF + CDEF {pf.want}")
+              f"{want} (strip, 6a, 6b), {itx_want} composer launches, "
+              f"LF + CDEF {pf.want} and {pf.lr_want} LR")
         if not device_composer:
             fps[name] = n / wall
     kv, hashes = run_client(INTER_1080)
@@ -2504,7 +2582,7 @@ def check_capi():
                             "fallbacks": sum(sr.frames)}
                   and any(sr.frames) == name.startswith("superres")
                   and not any(recon_counts(c))
-                  and pf_counts(c) == pf.want
+                  and pf_counts(c) == pf.want and c["lr"] == pf.lr_want
                   and pf.frames == len(sr.frames) - sum(sr.frames),
                   f"postfilter pipe {name}: stats {stats}, superres "
                   f"{sr.frames}, launches {c}, LF + CDEF wanted {pf.want}")
@@ -2927,6 +3005,7 @@ def main():
     err_itx, err_itx16, itx_frames = check_itx(dev)
     err_pf, err_pf16, pf_frames = check_postfilter(dev, hbd_key)
     stage_inputs = check_torch_stages(dev)
+    err_lr, lr_inputs = check_lr(dev)
     # the main path: the 8-bit streams, then the 10- and 12-bit ones (the
     # kernels' uint16 instantiations); each stream's counts are set to 0
     # just before it and read just after
@@ -2952,6 +3031,7 @@ def main():
     ti = inter_timings(caps, prog, dev)
     th = hash_timings(dev)
     stage_timings(stage_inputs, dev)
+    tlr = lr_timings(lr_inputs)
     t16 = hbd_timings(hbd_key, cap16, prog16, dev)
     titx = itx_timings(itx_frames)
     capi_fps(c_abi, compose_stages())
@@ -2989,7 +3069,11 @@ def main():
                      composer["itx_compose"], err_itx, titx["1080p"]),
         kernel_entry("itx_compose_hbd", "itx.cu", "itx_jax.py:31",
                      composer16["itx_compose"], err_itx16,
-                     titx["4K 10-bit"])] + [
+                     titx["4K 10-bit"]),
+        kernel_entry("lr", "lr.cu", "lr_jax.py:47", launches["lr"], err_lr,
+                     tlr["1920x1080 8-bit"]),
+        kernel_entry("lr_hbd", "lr.cu", "lr_jax.py:47", launches16["lr"],
+                     err_lr, tlr["3840x2160 10-bit"])] + [
         kernel_entry(name + suffix, source, replaces, lc[name], err[name],
                      tpf[frame][name])
         for suffix, lc, err, frame in (("", launches, err_pf, "1080p"),

@@ -252,7 +252,8 @@ def counters() -> Dict[str, int]:
     from easyav1_tpu_torch.native import pipe
     from easyav1_tpu_torch.video.av1.recon import (cdef_torch, inter_mc,
                                                    intra_strip, itx_torch,
-                                                   lf_torch, resident)
+                                                   lf_torch, lr_torch,
+                                                   resident)
     out = {"pipe.frames": pipe.stats["frames"],
            "pipe.fallbacks": pipe.stats["fallbacks"]}
     for kernel, fn in (("intra_wavefront_kernel",
@@ -263,6 +264,7 @@ def counters() -> Dict[str, int]:
                        ("lf_frame_kernel", lf_torch.lf_launch),
                        ("cdef_dirs_kernel", cdef_torch.dirs_launch),
                        ("cdef_filter_kernel", cdef_torch.filter_launch),
+                       ("lr_frame_kernel", lr_torch.lr_launch),
                        ("frame_hash_kernel", resident.frame_hash_device)):
         out[f"launches.{kernel}"] = fn.launches
     return out

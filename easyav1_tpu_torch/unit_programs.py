@@ -1,8 +1,9 @@
 """Seeded random pred-unit programs: inputs that hold the strip executor
 against its references (`exec_ref.UnitExecutor`, the Pallas kernel, its
 own plain version).  Also seeded transform programs for the residual
-composer, MC programs for the MC kernels, and deblocking and CDEF inputs
-for the postfilter kernels (`random_postfilter_case`).
+composer, MC programs for the MC kernels, deblocking and CDEF inputs
+for the postfilter kernels (`random_postfilter_case`), and loop
+restoration frames (`random_lr_case`).
 
 A program is one plane's units in the bridge's [N, 24] record layout: a
 base layer of 16x16 DC tiles, then random units of every class (DC, V,
@@ -14,6 +15,7 @@ Pallas strip kernel requires.  Built with numpy from a seed.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Dict, List
 
 import numpy as np
@@ -590,3 +592,55 @@ def random_postfilter_case(seed: int, dims, bd: int = 8, streams: int = 0,
         cdef["damping"] = (np.full_like(damping, 6 + cs, dtype=np.int32)
                            if streams else 6 + cs)
     return {"planes": planes, "maps": {"bd": bd, "lf": lf, "cdef": cdef}}
+
+
+def random_lr_case(seed: int, width: int, height: int, bd: int = 8,
+                   ss=(1, 1), kinds=((2, 3, 0), (2,), (3, 0)),
+                   unit_sizes=(64, 64, 64), align: int = 8, pad=(0, 0),
+                   sgr_set=None):
+    """A seeded loop-restoration frame: (hdr, seq, plan, planes,
+    deblocked), the planes int32 numpy arrays of `bd`-bit samples whose
+    size is the visible one rounded up to `align` (8: mi-aligned; 1: as
+    superres leaves them) plus `pad` rows and columns; the snapshot the
+    planes give or take 2.  kinds: by plane, the unit types that cycle
+    over its units (2 Wiener, 3 SGR, 0 none; no kinds: the plane's frame
+    type is NONE); Wiener taps and SGR sets and weights random
+    (`sgr_set` fixes the set); ss: (ssx, ssy)."""
+    rng = np.random.default_rng(seed)
+    ssx, ssy = ss
+    plan = SimpleNamespace(lr_type={}, lr_wiener={}, lr_sgr={})
+    vis = [(height, width)] + [((height + ssy) >> ssy,
+                                (width + ssx) >> ssx)] * 2
+    for plane, ((ph, pw), kind, us) in enumerate(zip(vis, kinds,
+                                                     unit_sizes)):
+        for urow in range(max((ph + us // 2) // us, 1)):
+            for ucol in range(max((pw + us // 2) // us, 1)):
+                if not kind:
+                    continue
+                k, key = kind[(urow + ucol) % len(kind)], (plane, urow, ucol)
+                plan.lr_type[key] = k
+                if k == 2:
+                    plan.lr_wiener[key] = [
+                        [0 if plane else int(rng.integers(-5, 11)),
+                         int(rng.integers(-23, 9)), int(rng.integers(-17, 47))]
+                        for _ in range(2)]
+                elif k == 3:
+                    plan.lr_sgr[key] = (
+                        int(rng.integers(0, 16)) if sgr_set is None
+                        else sgr_set, int(rng.integers(-96, 32)),
+                        int(rng.integers(-32, 96)))
+    ns = SimpleNamespace
+    hdr = ns(upscaled_width=width, frame_height=height, lr=ns(
+        uses_lr=True, frame_restoration_type=[
+            (plane + 1) if kind else 0 for plane, kind in enumerate(kinds)],
+        loop_restoration_size=list(unit_sizes)))
+    seq = ns(color=ns(subsampling_x=ssx, subsampling_y=ssy, num_planes=3,
+                      mono_chrome=False, bitdepth=bd))
+    ah, aw = -(-height // align) * align, -(-width // align) * align
+    dims = [(ah, aw)] + [((ah + ssy) >> ssy, (aw + ssx) >> ssx)] * 2
+    mx = (1 << bd) - 1
+    planes = [rng.integers(0, mx + 1, (h + pad[0], w + pad[1]))
+              .astype(np.int32) for h, w in dims]
+    debl = [np.clip(p[:h, :w] + rng.integers(-2, 3, (h, w)), 0, mx)
+            .astype(np.int32) for p, (h, w) in zip(planes, dims)]
+    return hdr, seq, plan, planes, debl

@@ -5,30 +5,40 @@ box filter of `RESTORE_SGRPROJ`, spec 7.17.3): the counterpart of
 `:266-416`), and of `_lr_plan`
 (`easyav1_tpu/native/__init__.py:1516-1530`).
 
-Stripes of 64 luma rows never read each other's output, so a plane is
-one batch of stripe windows [ns, sh + 6, W + 6]; rows above and below a
-stripe come from the deblocked (pre-CDEF) snapshot, clamped two rows in.
-The host expands each restoration unit's parameters across its columns
-(numpy, as in the reference); the device filters with exact integer
-torch ops.  Everything is int32 except the SGR `p * s`, which
-the reference computes in uint32 and which passes 2^31: int64 here,
-masked to 32 bits; and b2's product, int64, which passes 2^31 at 12
-bits.  Above 8 bits the SGR variance takes the box sums rounded to 8
-bits and b2 the sum itself, as the spec (7.17.3) and dav1d do; the JAX
-package rounds the sum for both.
+`LoopRestoration.apply` is what the pipe calls: on CUDA tensors it
+launches `csrc/lr.cu` (built by nvcc at first use) once a frame for
+every plane that restores, through `lr_launch`, or raises; on CPU
+tensors it takes the plain version, `apply_plain`.  `lr_launch.launches`
+counts the kernel's launches.  The kernel reads one small table a frame,
+one entry a restoration unit (`LoopRestoration.unit_table`).
+
+The plain version: stripes of 64 luma rows never read each other's
+output, so a plane is one batch of stripe windows [ns, sh + 6, W + 6];
+rows above and below a stripe come from the deblocked (pre-CDEF)
+snapshot, clamped two rows in.  The host expands each restoration
+unit's parameters across its columns (numpy, as in the reference); the
+device filters with exact integer torch ops.  Everything is int32 except
+the SGR `p * s`, which the reference computes in uint32 and which passes
+2^31: int64 here, masked to 32 bits; and b2's product, int64, which
+passes 2^31 at 12 bits.  Above 8 bits the SGR variance takes the box
+sums rounded to 8 bits and b2 the sum itself, as the spec (7.17.3) and
+dav1d do; the JAX package rounds the sum for both.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import itertools
 from types import SimpleNamespace
 from typing import List
 
 import numpy as np
 import torch
 
-from easyav1_tpu_torch import convert
+from easyav1_tpu_torch import convert, trace
 from easyav1_tpu_torch.video.av1 import constants as C
+from easyav1_tpu_torch.video.av1.recon.lf_torch import on_card
 
 # Copies of easyav1_tpu/video/av1/lr_ref.py::SGR_RADII, SGR_S and _DIV_LUT
 # (spec Sgr_Params and Div_Lut).
@@ -51,6 +61,8 @@ def _a2_lut() -> np.ndarray:
 
 
 _A2 = _a2_lut()
+# ints a restoration unit's entry in `LoopRestoration.unit_table`
+LR_ENTRY = 20
 
 
 @functools.lru_cache(maxsize=None)
@@ -74,9 +86,12 @@ def lr_plan(out, bufs) -> SimpleNamespace:
     return plan
 
 
-def _fil7(t3, plane):
-    t0, t1, t2 = (0 if plane else t3[0]), t3[1], t3[2]
-    return [t0, t1, t2, 128 - 2 * (t0 + t1 + t2), t2, t1, t0]
+def _fil7_rows(t3: np.ndarray, plane: np.ndarray) -> np.ndarray:
+    """The 7-tap Wiener filters [n, 7] of n coded tap triples [n, 3] of
+    the planes [n] (chroma has no outer tap)."""
+    t0 = np.where(plane != 0, 0, t3[:, 0])
+    t1, t2 = t3[:, 1], t3[:, 2]
+    return np.stack([t0, t1, t2, 128 - 2 * (t0 + t1 + t2), t2, t1, t0], 1)
 
 
 def _win2d(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -226,14 +241,71 @@ class LoopRestoration:
         ns = (ph + stripe_off + stripe_h - 1) // stripe_h
         return pw, ph, stripe_h, stripe_off, ns
 
+    def _unit_grid(self, plane):
+        """(unit size, unit rows, unit columns) of a plane: the last
+        unit of a row or column absorbs the remainder."""
+        pw, ph = self._plane_geometry(plane)[:2]
+        unit_size = self.hdr.lr.loop_restoration_size[plane]
+        return (unit_size, max((ph + (unit_size >> 1)) // unit_size, 1),
+                max((pw + (unit_size >> 1)) // unit_size, 1))
+
+    def unit_table(self):
+        """Host: what `csrc/lr.cu` reads, (dims, table).  table: int32
+        [units, LR_ENTRY], an entry a restoration unit of each plane
+        that restores, row-major by unit row and column: type (Wiener,
+        SGR, or 0: copied), the horizontal and the vertical 7-tap Wiener
+        filters (`_fil7_rows`), the SGR set, xqd0, xqd1, 0, 0.  dims: a list,
+        by plane that restores, of (plane, ph, pw, stripe height, its
+        offset, unit size, unit rows, unit columns, first entry).  A
+        plane restores when its frame type is not NONE and one of its
+        units is Wiener or SGR; units of the plan outside a plane's unit
+        grid are not read, as in `stripe_params`."""
+        lr = getattr(self.hdr, "lr", None)
+        dims, tables, n = [], [], 0
+        if lr is None or not lr.uses_lr:
+            return dims, np.zeros((0, LR_ENTRY), np.int32)
+        plan = self.plan
+        keys = list(plan.lr_type)
+        flat = itertools.chain.from_iterable
+        k = np.fromiter(flat(keys), np.int64, 3 * len(keys)).reshape(-1, 3)
+        types = np.fromiter(plan.lr_type.values(), np.int64, len(keys))
+        # an entry for every unit of the plan, then scattered by plane
+        rows = np.zeros((len(keys), LR_ENTRY), np.int32)
+        w = np.flatnonzero(types == C.RESTORE_WIENER)
+        taps = np.fromiter(flat(flat(plan.lr_wiener[keys[i]] for i in w)),
+                           np.int32, 6 * len(w)).reshape(-1, 2, 3)
+        rows[w, 0] = C.RESTORE_WIENER
+        rows[w, 1:8] = _fil7_rows(taps[:, 1], k[w, 0])
+        rows[w, 8:15] = _fil7_rows(taps[:, 0], k[w, 0])
+        sg = np.flatnonzero(types == C.RESTORE_SGRPROJ)
+        rows[sg, 0] = C.RESTORE_SGRPROJ
+        rows[sg, 15:18] = np.fromiter(flat(plan.lr_sgr[keys[i]] for i in sg),
+                                      np.int32, 3 * len(sg)).reshape(-1, 3)
+        for plane in range(self.seq.color.num_planes):
+            if lr.frame_restoration_type[plane] == C.RESTORE_NONE:
+                continue
+            pw, ph, sh, off, _ns = self._plane_geometry(plane)
+            unit_size, urows, ucols = self._unit_grid(plane)
+            sel = ((k[:, 0] == plane) & (k[:, 1] < urows)
+                   & (k[:, 2] < ucols) & (rows[:, 0] != 0))
+            if not sel.any():
+                continue
+            t = np.zeros((urows * ucols, LR_ENTRY), np.int32)
+            t[k[sel, 1] * ucols + k[sel, 2]] = rows[sel]
+            dims.append((plane, ph, pw, sh, off, unit_size, urows, ucols,
+                         n))
+            tables.append(t)
+            n += urows * ucols
+        if not dims:
+            return dims, np.zeros((0, LR_ENTRY), np.int32)
+        return dims, np.concatenate(tables)
+
     def stripe_params(self, plane):
         """Host: (spans, maps) of a plane.  spans: per stripe (y0, h) or
         None; maps: the per-column parameter maps `lr_stripes` reads, as
         numpy, with "any_w" and "any_s"."""
         pw, ph, stripe_h, stripe_off, ns = self._plane_geometry(plane)
-        unit_size = self.hdr.lr.loop_restoration_size[plane]
-        unit_rows = max((ph + (unit_size >> 1)) // unit_size, 1)
-        unit_cols = max((pw + (unit_size >> 1)) // unit_size, 1)
+        unit_size, unit_rows, unit_cols = self._unit_grid(plane)
         m = {"FH": np.zeros((ns, 7, pw), np.int32),
              "FV": np.zeros((ns, 7, pw), np.int32)}
         for k in ("is_w", "is_s", "r0c", "r1c"):
@@ -259,7 +331,8 @@ class LoopRestoration:
                 if rtype == C.RESTORE_WIENER:
                     taps = self.plan.lr_wiener[key]
                     for name, t3 in (("FH", taps[1]), ("FV", taps[0])):
-                        m[name][s, :, cs] = np.array(_fil7(t3, plane))[:, None]
+                        m[name][s, :, cs] = _fil7_rows(
+                            np.asarray([t3]), np.asarray([plane]))[0][:, None]
                     m["is_w"][s, cs] = True
                 elif rtype == C.RESTORE_SGRPROJ:
                     sgr_set, xqd0, xqd1 = self.plan.lr_sgr[key]
@@ -294,6 +367,14 @@ class LoopRestoration:
 
     def apply(self, planes: List[torch.Tensor],
               deblocked: List[torch.Tensor]) -> List[torch.Tensor]:
+        """`lr_launch`: the kernel on CUDA tensors, `apply_plain` on CPU
+        tensors."""
+        return lr_launch(self, planes, deblocked)
+
+    def apply_plain(self, planes: List[torch.Tensor],
+                    deblocked: List[torch.Tensor]) -> List[torch.Tensor]:
+        """`apply` as plain torch ops on any device: `lr_stripes` on the
+        gathered stripe windows of each plane that restores."""
         lr = getattr(self.hdr, "lr", None)
         out = list(planes)
         if lr is None or not lr.uses_lr:
@@ -329,3 +410,86 @@ class LoopRestoration:
             new[:ph, :pw] = restored.to(new.dtype)
             out[plane] = new
         return out
+
+
+def _lib():
+    from easyav1_tpu_torch import _build
+    lib = _build.load("lr")
+    fn = lib.lr_frame_launch
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(ci), ci, vp, ci,
+                       vp]
+    return lib
+
+
+def launch_dims(dims, planes, deblocked) -> List[int]:
+    """`lr_frame_launch`'s dims, 11 ints a plane that restores (h, w,
+    the snapshot's pitch, ph, pw, stripe height and offset, unit size,
+    unit rows and columns, first entry), from `unit_table`'s dims; raises
+    unless the planes and snapshots are 2-D int32 tensors that cover the
+    visible size."""
+    out = []
+    for plane, ph, pw, *rest in dims:
+        x, d = planes[plane], deblocked[plane]
+        if (x.dtype != torch.int32 or d.dtype != torch.int32
+                or x.dim() != 2 or d.dim() != 2 or x.shape[0] < ph
+                or x.shape[1] < pw or d.shape[0] < ph or d.shape[1] < pw):
+            raise ValueError(
+                f"plane {plane}: want 2-D int32 planes and snapshots "
+                f"covering {ph}x{pw}, got {x.dtype} {tuple(x.shape)} and "
+                f"{d.dtype} {tuple(d.shape)}")
+        out += [*x.shape, d.shape[1], ph, pw, *rest]
+    return out
+
+
+def lr_launch(lr: LoopRestoration, planes: List[torch.Tensor],
+              deblocked: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Loop restoration of a frame's int32 planes (possibly mi-padded
+    beyond the visible size) from the deblocked snapshot (int32, covering
+    the visible size), as `lr` (a `LoopRestoration`) says.  CUDA tensors
+    (contiguous) launch `csrc/lr.cu` once for every plane that restores,
+    into new planes, or raise; CPU tensors take `lr.apply_plain`.  A
+    plane that does not restore is returned as it is; no input is
+    written."""
+    dims, table = lr.unit_table()
+    if not dims:
+        return list(planes)
+    ints = launch_dims(dims, planes, deblocked)
+    on = [d[0] for d in dims]
+    if not on_card(planes[on[0]], [t for p in on
+                                   for t in (planes[p], deblocked[p])]):
+        return lr.apply_plain(planes, deblocked)
+    host = torch.from_numpy(table).pin_memory()
+    trace.add(h2d_bytes=host.nbytes)
+    tab = host.to(planes[on[0]].device, non_blocking=True)
+    return frame_launch(planes, deblocked, on, ints, tab, lr.bd)
+
+
+def frame_launch(planes: List[torch.Tensor], deblocked: List[torch.Tensor],
+                 on: List[int], ints: List[int], table: torch.Tensor,
+                 bd: int) -> List[torch.Tensor]:
+    """The launch of `lr_launch`: the planes `on` restored into new
+    planes from `launch_dims`' ints and `unit_table`'s table, int32 on
+    the planes' device (the rest as they are).  Raises if the launch
+    fails."""
+    out = list(planes)
+    dev = planes[on[0]].device
+    ptrs = []
+    for p in on:
+        out[p] = torch.empty_like(planes[p])
+        ptrs += [planes[p].data_ptr(), deblocked[p].data_ptr(),
+                 out[p].data_ptr()]
+    with torch.cuda.device(dev):
+        rc = _lib().lr_frame_launch(
+            (ctypes.c_void_p * len(ptrs))(*ptrs),
+            (ctypes.c_int * len(ints))(*ints), len(on), table.data_ptr(),
+            bd, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"lr_frame launch failed: cudaError {rc}")
+    lr_launch.launches += 1
+    return out
+
+
+lr_launch.launches = 0

@@ -22,7 +22,8 @@ from easyav1_tpu_torch import trace
 from easyav1_tpu_torch.native import pipe
 from easyav1_tpu_torch.video.av1.recon import (cdef_torch, inter_mc,
                                                intra_strip, itx_torch,
-                                               lf_torch, resident)
+                                               lf_torch, lr_torch,
+                                               resident)
 
 SMOKE = os.path.join(os.path.dirname(__file__), "data", "smoke")
 # compound, warps and OBMC: 1 key and 7 inter frames
@@ -198,6 +199,7 @@ LAUNCHERS = {"intra_wavefront_kernel": intra_strip.strip_exec_frame,
              "lf_frame_kernel": lf_torch.lf_launch,
              "cdef_dirs_kernel": cdef_torch.dirs_launch,
              "cdef_filter_kernel": cdef_torch.filter_launch,
+             "lr_frame_kernel": lr_torch.lr_launch,
              "frame_hash_kernel": resident.frame_hash_device}
 
 
