@@ -7,8 +7,8 @@ once: the C decoder (gcc, `easyav1_tpu_torch/native`), the C ABI's
 library and its client executable (gcc, `easyav1_tpu_torch/capi`) and
 the CUDA kernels (nvcc, `easyav1_tpu_torch/csrc/intra_strip.cu`,
 `csrc/inter_mc.cu`, `csrc/frame_hash.cu`, `csrc/itx.cu`,
-`csrc/loopfilter.cu`, `csrc/cdef.cu` and `csrc/lr.cu`, whose ptxas
-reports it prints).
+`csrc/loopfilter.cu`, `csrc/cdef.cu`, `csrc/lr.cu` and `csrc/fg.cu`,
+whose ptxas reports it prints).
 Then:
 
 1. holds every kernel against its plain torch version on the card,
@@ -25,9 +25,11 @@ Then:
    inter frame and 20 runs of 6b on a random 1080p program, each
    bit-equal to the first (a race shows here); the frame hash kernel on
    seeded uint8 and uint16 planes of odd sizes, offsets and pitches
-   against its plain version and `api.frame_hash`; the torch-ops stages
-   (superres upscale, film grain) on the card against the same functions
-   on the CPU, on seeded 1080p inputs; loop restoration
+   against its plain version and `api.frame_hash`; the superres
+   upscale's torch ops on the card against the same functions on the
+   CPU, and the film grain kernel against its plain version on the card
+   and on the CPU, on seeded 1080p inputs (grain also with the 1080p
+   grain bench stream's two parameter sets); loop restoration
    (`csrc/lr.cu`, every plane, one launch a frame) against
    `LoopRestoration.apply_plain` on the card on seeded 1920x1080 8-bit
    and 3840x2160 10-bit frames (`unit_programs.random_lr_case`: Wiener,
@@ -202,7 +204,7 @@ from easyav1_tpu_torch.parallel.mesh import MultiStreamVorbisSynth
 from easyav1_tpu_torch.unit_programs import (
     program_frame, random_ibc_program, random_interintra_program,
     random_lr_case, random_mc_program, random_postfilter_case,
-    random_program, random_tx_program, shaped_tx_program)
+    random_program, random_tx_program, shaped_tx_program, stream_grain)
 from easyav1_tpu_torch.video.av1 import itx_ref
 from easyav1_tpu_torch.video.av1 import tables as T
 from easyav1_tpu_torch.video.av1.recon import (cdef_torch, fg_torch, inter_mc,
@@ -258,12 +260,12 @@ COUNTERS = {"intra_strip": intra_strip.strip_exec_frame,
             "deblock": lf_torch.lf_launch,
             "cdef_dirs": cdef_torch.dirs_launch,
             "cdef_filter": cdef_torch.filter_launch,
-            "lr": lr_torch.lr_launch}
-# the LF + CDEF kernels' counters; the others but "lr" are the recon
-# kernels'
+            "lr": lr_torch.lr_launch, "fg": fg_torch.fg_launch}
+# the LF + CDEF kernels' counters; the others but "lr" and "fg" are the
+# recon kernels'
 PF_KERNELS = ("deblock", "cdef_dirs", "cdef_filter")
 KERNEL_SOURCES = ("intra_strip", "inter_mc", "frame_hash", "itx",
-                  "loopfilter", "cdef", "lr")
+                  "loopfilter", "cdef", "lr", "fg")
 # (seed, plane dims, bit depth) of the device composer's random
 # programs: 1080p 4:2:0 and an odd 4:4:4 size (crops at the right and
 # bottom edges), each with every legal (tx_size, tx_type) pair
@@ -1126,11 +1128,14 @@ def grain_case(seed):
 
 
 def check_torch_stages(dev):
-    """Phase 1: the stages this slice ports as exact torch ops, on the
-    card against the same functions on the CPU, tolerance 0, on seeded
-    1080p inputs: the superres upscale (luma 1280 -> 1920 and its
-    chroma, and an unaligned coded width), film grain over all three
-    planes.  Returns the inputs on the card, for the timings."""
+    """Phase 1: the superres upscale as exact torch ops on the card
+    against the same functions on the CPU, tolerance 0, on seeded 1080p
+    inputs (luma 1280 -> 1920 and its chroma, and an unaligned coded
+    width); film grain's kernel (`csrc/fg.cu`, `FilmGrain.apply`, one
+    launch) over all three planes against its plain version on the card
+    and on the CPU, tolerance 0, with a seeded parameter set and with
+    both of the 1080p grain bench stream's.  Returns the inputs on the
+    card, for the timings."""
     cpu = torch.device("cpu")
     rng = np.random.default_rng(5)
     sr = []
@@ -1151,14 +1156,26 @@ def check_torch_stages(dev):
         bitdepth=8))
     u8 = [torch.from_numpy(rng.integers(0, 256, d).astype(np.uint8))
           for d in ((1080, 1920), (540, 960), (540, 960))]
-    got = fg_torch.FilmGrain(fgp, seq, 8, dev).apply([t.to(dev) for t in u8])
-    want = fg_torch.FilmGrain(fgp, seq, 8, cpu).apply(u8)
-    e = max_err([g.cpu().int() for g in got], [w.int() for w in want])
-    changed = sum(int((w != t).sum()) for w, t in zip(want, u8))
-    print(f"film grain 1920x1080, {changed} pixels changed: card vs CPU "
-          f"max_abs_err {e}")
-    check(e == 0 and changed > 0, "fg_torch differs between card and CPU")
-    return {"sr": sr, "fg": (fgp, seq, [t.to(dev) for t in u8])}
+    on_dev = [t.to(dev) for t in u8]
+    for name, (p, sq) in [("seeded", (fgp, seq))] + [
+            (f"bench stream frame {i}", g)
+            for i, g in enumerate(stream_grain(LR_GRAIN_1080))]:
+        grain = fg_torch.FilmGrain(p, sq, 8, dev)
+        before = fg_torch.fg_launch.launches
+        got = grain.apply(on_dev)
+        launches = fg_torch.fg_launch.launches - before
+        plain = grain.apply_plain(on_dev)
+        want = fg_torch.FilmGrain(p, sq, 8, cpu).apply(u8)
+        e = max(max_err([g.cpu().int() for g in got],
+                        [w.cpu().int() for w in plain]),
+                max_err([g.cpu().int() for g in got], [w.int() for w in want]))
+        changed = sum(int((w != t).sum()) for w, t in zip(want, u8))
+        print(f"film grain kernel 1920x1080 ({name}, {changed} pixels "
+              f"changed, {launches} launch): vs plain on the card and on "
+              f"the CPU max_abs_err {e}")
+        check(e == 0 and changed > 0 and launches == 1,
+              "the film grain kernel differs from its plain version")
+    return {"sr": sr, "fg": (fgp, seq, on_dev)}
 
 
 # (name, seed, width, height, bit depth) of the loop-restoration frames:
@@ -1438,7 +1455,8 @@ class PostfilterCalls:
 
 def recon_counts(c):
     """The recon kernels' counts of `counts()`, in COUNTERS order."""
-    return tuple(v for k, v in c.items() if k not in PF_KERNELS + ("lr",))
+    return tuple(v for k, v in c.items()
+                 if k not in PF_KERNELS + ("lr", "fg"))
 
 
 def pf_counts(c):
@@ -2134,20 +2152,24 @@ def stage_timings(inp, dev):
     fg = fg_torch.FilmGrain(fgp, seq, 8, dev)
     torch.cuda.synchronize()
     fg_host_ms = (time.perf_counter() - t0) * 1e3
-    fg_ms = cuda_ms(lambda: fg.apply(u8), 5)
-    print(f"torch-ops stages on seeded 1080p 4:2:0 planes (CUDA events): "
-          f"superres 1280 -> 1920 of three planes {sr_ms:.3f} ms, film "
-          f"grain of three planes {fg_ms:.3f} ms after {fg_host_ms:.3f} ms "
-          f"of host templates and LUTs (host clock)")
+    fg_ms = cuda_ms(lambda: fg.apply(u8), 50)
+    fg_plain_ms = cuda_ms(lambda: fg.apply_plain(u8), 5)
+    print(f"seeded 1080p 4:2:0 planes (CUDA events): superres 1280 -> 1920 "
+          f"of three planes (torch ops) {sr_ms:.3f} ms; film grain of three "
+          f"planes, kernel {fg_ms:.4f} ms (plain version {fg_plain_ms:.3f} "
+          f"ms) after {fg_host_ms:.3f} ms of host templates, LUTs and their "
+          f"upload (host clock)")
     # byte bounds: each plane the stage reads read once, each plane it
     # writes written once (superres: int32 in and out, at the output
     # width; grain: the uint8 planes in and out)
     sr_bytes = sum(p.shape[0] * (p.shape[1] + dw) * 4
                    for p, _sw, dw in (inp["sr"][0], chroma, chroma))
     fg_bytes = sum(2 * t.numel() for t in u8)
-    for name, nbytes in (("superres", sr_bytes), ("film grain", fg_bytes)):
+    for name, nbytes, ms in (("superres", sr_bytes, sr_ms),
+                             ("film grain", fg_bytes, fg_ms)):
+        floor_us = nbytes / HBM_BYTES_PER_S * 1e6
         print(f"  {name}: {nbytes / 1e6:.3f} MB, byte bound "
-              f"{nbytes / HBM_BYTES_PER_S * 1e6:.3f} us")
+              f"{floor_us:.3f} us, {ms * 1e3 / floor_us:.2f}x")
     every = traced_stages(lambda: easyav1_tpu_torch.EasyAV1(
         LR_GRAIN_1080, device="cuda"))
     log, key = [d for d in every if "mc" in d], every[0]

@@ -121,10 +121,8 @@ class _FgParams(ctypes.Structure):
     ]
 
 
-def film_grain_native(fg, seq, planes):
-    """Apply film grain via the C path; returns new planes (dtype of
-    the inputs) or None when the C synthesis fails."""
-    lib = _load()
+def _fg_params(fg) -> _FgParams:
+    """The C mirror of a `headers.FilmGrainParams`."""
     p = _FgParams(
         grain_seed=fg.grain_seed, num_y_points=fg.num_y_points,
         num_cb_points=fg.num_cb_points, num_cr_points=fg.num_cr_points,
@@ -151,6 +149,31 @@ def film_grain_native(fg, seq, planes):
         arr = getattr(p, name)
         for i, v in enumerate(vals):
             arr[i] = int(v)
+    return p
+
+
+def fg_templates(fg, bd: int, ssx: int, ssy: int, mono: bool):
+    """The grain templates of a parameter set from the C generator
+    (av1_fg.h `av1_fg_templates`, spec 7.18.3.3): (luma [73, 82], Cb,
+    Cr) int32 arrays, each chroma template [38 or 73, 44 or 82] by the
+    subsampling; the chroma templates are None for a monochrome
+    stream."""
+    out = np.zeros((3, 73, 82), np.int32)
+    rc = _load().av1_fg_templates(ctypes.byref(_fg_params(fg)), bd, ssx,
+                                  ssy, int(mono), _vp(out))
+    if rc != 0:
+        raise MemoryError("av1_fg_templates: out of memory")
+    if mono:
+        return out[0], None, None
+    ch, cw = (38 if ssy else 73), (44 if ssx else 82)
+    return out[0], out[1, :ch, :cw].copy(), out[2, :ch, :cw].copy()
+
+
+def film_grain_native(fg, seq, planes):
+    """Apply film grain via the C path; returns new planes (dtype of
+    the inputs) or None when the C synthesis fails."""
+    lib = _load()
+    p = _fg_params(fg)
     src = [np.asarray(pl) for pl in planes]
     # copies: at 16 bits ascontiguousarray would hand back the caller's
     # planes, and the grain would land in the reference frames
@@ -379,6 +402,10 @@ def _load() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_void_p * 3), ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int]
+    lib.av1_fg_templates.restype = ctypes.c_int
+    lib.av1_fg_templates.argtypes = [
+        ctypes.POINTER(_FgParams), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.vorbis_create.restype = ctypes.c_void_p
     lib.vorbis_create.argtypes = [ctypes.c_char_p, ctypes.c_long]
     lib.vorbis_destroy.restype = None

@@ -204,6 +204,26 @@ static void fg_grain_block(const int32_t (*grain)[FG_GRAIN_W],
  * Pel-independent (always uint16 work copies from Python) — compiled
  * once, in the 16-bit recon unit. */
 #if PEL_BITS == 16
+/* The grain templates of one parameter set (fg_generate), exported for
+ * the device path: out holds 3 x FG_GRAIN_H x FG_GRAIN_W int32, luma,
+ * then Cb, then Cr, each chroma template in its top-left 38 x 44 (4:2:0),
+ * 73 x 44 (4:2:2) or the whole (4:4:4), zero elsewhere and in both
+ * chroma templates of a monochrome stream.  Returns 0, 2 when out of
+ * memory. */
+int av1_fg_templates(const FgParams *fg, int bd, int ssx, int ssy,
+                     int mono, int32_t *out) {
+    FgState *st = malloc(sizeof(FgState));
+    if (!st) return 2;
+    memset(st, 0, sizeof(FgState));
+    fg_generate(fg, bd, ssx, ssy, mono, st);
+    size_t n = sizeof(st->luma) / sizeof(int32_t);
+    memcpy(out, st->luma, sizeof(st->luma));
+    memcpy(out + n, st->cb, sizeof(st->cb));
+    memcpy(out + 2 * n, st->cr, sizeof(st->cr));
+    free(st);
+    return 0;
+}
+
 int av1_film_grain(const FgParams *fg, int bd, int ssx, int ssy,
                    int mono, int num_planes, uint16_t *const planes[3],
                    const uint16_t *luma_orig, int w, int h) {

@@ -23,7 +23,9 @@ The spans, by layer:
   it the stages, each closed by a mark of `Stages`: "entropy", "plan",
   "prepare", "pack", "compose", "upload", "mc", "intra", "lf_cdef",
   "sr", "lr", "tail", "grain", and "recon" (the C recon: the postfilter
-  pipe's, or a declined frame's); "compose" is the residual composer
+  pipe's, or a declined frame's), and inside "grain" "fg_templates"
+  (the film grain templates, attribute "cached": whether the frame's
+  parameters are the last frame's); "compose" is the residual composer
   (the host C composer inside the host prepare, or the device composer's
   kernel after the upload), "pack" the device composer's host packing of
   the coded rows; a stage marked twice in a frame has two spans;
@@ -32,7 +34,8 @@ The spans, by layer:
   device carry the bytes as "h2d_bytes" and "d2h_bytes".
 
 `counters()` reads the port's counters in one place: frames and
-fallbacks of the pipe, and each hand kernel's launches.
+fallbacks of the pipe, each hand kernel's launches, and the film grain
+template sets made.
 """
 
 from __future__ import annotations
@@ -246,16 +249,18 @@ def thread_ids() -> Dict[int, int]:
 
 def counters() -> Dict[str, int]:
     """The port's counters: "pipe.frames" (frames that reached the
-    pipe), "pipe.fallbacks" (those declined to the C recon), and
+    pipe), "pipe.fallbacks" (those declined to the C recon),
+    "fg.templates" (film grain template sets made), and
     "launches.<kernel>" for each hand kernel, named as the profiler
     names it."""
     from easyav1_tpu_torch.native import pipe
-    from easyav1_tpu_torch.video.av1.recon import (cdef_torch, inter_mc,
-                                                   intra_strip, itx_torch,
-                                                   lf_torch, lr_torch,
-                                                   resident)
+    from easyav1_tpu_torch.video.av1.recon import (cdef_torch, fg_torch,
+                                                   inter_mc, intra_strip,
+                                                   itx_torch, lf_torch,
+                                                   lr_torch, resident)
     out = {"pipe.frames": pipe.stats["frames"],
-           "pipe.fallbacks": pipe.stats["fallbacks"]}
+           "pipe.fallbacks": pipe.stats["fallbacks"],
+           "fg.templates": fg_torch.FilmGrain.generated}
     for kernel, fn in (("intra_wavefront_kernel",
                         intra_strip.strip_exec_frame),
                        ("mc_kernel", inter_mc.mc_launch),
@@ -265,6 +270,7 @@ def counters() -> Dict[str, int]:
                        ("cdef_dirs_kernel", cdef_torch.dirs_launch),
                        ("cdef_filter_kernel", cdef_torch.filter_launch),
                        ("lr_frame_kernel", lr_torch.lr_launch),
+                       ("fg_frame_kernel", fg_torch.fg_launch),
                        ("frame_hash_kernel", resident.frame_hash_device)):
         out[f"launches.{kernel}"] = fn.launches
     return out

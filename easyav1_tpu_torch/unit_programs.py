@@ -2,8 +2,9 @@
 against its references (`exec_ref.UnitExecutor`, the Pallas kernel, its
 own plain version).  Also seeded transform programs for the residual
 composer, MC programs for the MC kernels, deblocking and CDEF inputs
-for the postfilter kernels (`random_postfilter_case`), and loop
-restoration frames (`random_lr_case`).
+for the postfilter kernels (`random_postfilter_case`), loop
+restoration frames (`random_lr_case`) and film grain frames
+(`random_fg_case`, `stream_grain`).
 
 A program is one plane's units in the bridge's [N, 24] record layout: a
 base layer of 16x16 DC tiles, then random units of every class (DC, V,
@@ -644,3 +645,86 @@ def random_lr_case(seed: int, width: int, height: int, bd: int = 8,
     debl = [np.clip(p[:h, :w] + rng.integers(-2, 3, (h, w)), 0, mx)
             .astype(np.int32) for p, (h, w) in zip(planes, dims)]
     return hdr, seq, plan, planes, debl
+
+
+def random_fg_case(seed: int, width: int, height: int, bd: int = 8,
+                   ss=(1, 1), mono: bool = False, lag: int = 3,
+                   overlap: bool = True, chroma: str = "mult",
+                   restricted: bool = False, luma: bool = True):
+    """A seeded film grain frame: (fg, seq, planes), fg a
+    `headers.FilmGrainParams` with random scaling points, AR coefficients
+    of `lag`, shifts and chroma combination, the planes numpy arrays of
+    `bd`-bit samples (uint8 at 8 bits, uint16 above), luma [height,
+    width] and, unless `mono`, chroma subsampled by ss = (ssx, ssy).
+    chroma: "mult" (each chroma plane its own points, mult, luma mult and
+    offset), "luma" (chroma scaling from luma) or "none"; luma False
+    leaves luma without points."""
+    from easyav1_tpu_torch.video.av1.headers import FilmGrainParams
+    rng = np.random.default_rng(seed)
+    ssx, ssy = ss
+
+    def points(most):
+        n = int(rng.integers(1, most + 1))
+        val = np.sort(rng.choice(256, n, replace=False)).tolist()
+        return n, val, rng.integers(0, 256, n).tolist()
+
+    n_pos = 2 * lag * (lag + 1)
+    fg = FilmGrainParams(
+        apply_grain=True, grain_seed=int(rng.integers(0, 1 << 16)),
+        grain_scaling=int(rng.integers(8, 12)), ar_coeff_lag=lag,
+        ar_coeff_shift=int(rng.integers(6, 10)),
+        grain_scale_shift=int(rng.integers(0, 4)),
+        overlap_flag=overlap, clip_to_restricted_range=restricted,
+        ar_coeffs_y=rng.integers(-48, 48, n_pos).tolist(),
+        ar_coeffs_cb=rng.integers(-48, 48, n_pos + 1).tolist(),
+        ar_coeffs_cr=rng.integers(-48, 48, n_pos + 1).tolist())
+    if luma:
+        fg.num_y_points, fg.point_y_value, fg.point_y_scaling = points(14)
+    if chroma == "luma":
+        fg.chroma_scaling_from_luma = True
+    elif chroma == "mult":
+        fg.num_cb_points, fg.point_cb_value, fg.point_cb_scaling = points(10)
+        fg.num_cr_points, fg.point_cr_value, fg.point_cr_scaling = points(10)
+        fg.cb_mult, fg.cb_luma_mult, fg.cr_mult, fg.cr_luma_mult = (
+            int(v) for v in rng.integers(0, 256, 4))
+        fg.cb_offset, fg.cr_offset = (int(v) for v in rng.integers(0, 512, 2))
+    seq = SimpleNamespace(color=SimpleNamespace(
+        subsampling_x=ssx, subsampling_y=ssy, mono_chrome=mono,
+        num_planes=1 if mono else 3, bitdepth=bd))
+    dt = np.uint8 if bd == 8 else np.uint16
+    dims = [(height, width)] + ([] if mono else [
+        ((height + ssy) >> ssy, (width + ssx) >> ssx)] * 2)
+    planes = [rng.integers(0, 1 << bd, d).astype(dt) for d in dims]
+    return fg, seq, planes
+
+
+def stream_grain(path: str, shown: bool = False):
+    """(film grain parameters, sequence header) of each frame of an AV1
+    WebM stream whose header applies grain, read by the port's parser;
+    `shown`: of every shown frame instead, (None, None) for one that
+    shows an existing frame again."""
+    from easyav1_tpu_torch.container.webm import TrackType, WebMDemuxer
+    from easyav1_tpu_torch.video.av1.backend import AV1Backend
+
+    found = []
+
+    class Headers(AV1Backend):
+        def _decode_frame(self, hdr, tile_payloads, ts):
+            # later headers are parsed against the references it refreshes
+            self.hp.update_refs(hdr)
+            fg = hdr.film_grain
+            if (hdr.show_frame if shown
+                    else fg is not None and fg.apply_grain):
+                found.append((fg, self.seq))
+
+        def _show_existing(self, hdr, ts):
+            if shown:
+                found.append((None, None))
+
+    dmx = WebMDemuxer(path)
+    vt = dmx.tracks_of_type(TrackType.VIDEO)[0]
+    be = Headers(vt)
+    while (p := dmx.read_packet()) is not None:
+        if p.track == vt.number:
+            be.decode(p.frames, 0)
+    return found

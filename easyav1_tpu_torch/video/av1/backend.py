@@ -314,13 +314,16 @@ class AV1Backend:
     def _film_grain_device(self, fg, seq, planes):
         """Film grain on the device planes of a frame the pipe made; the
         templates and LUTs are kept while the parameters stay the same
-        (the reference's `_film_grain_device`)."""
+        (the reference's `_film_grain_device`); span "fg_templates",
+        attribute "cached"."""
         key = tuple(tuple(v) if isinstance(v, list) else v
                     for v in (getattr(fg, f.name)
                               for f in dataclasses.fields(fg)))
-        if self._dev_fg is None or self._dev_fg[0] != key:
-            self._dev_fg = (key, FilmGrain(fg, seq, seq.color.bitdepth,
-                                           self.device))
+        cached = self._dev_fg is not None and self._dev_fg[0] == key
+        with trace.span("fg_templates", cached=cached):
+            if not cached:
+                self._dev_fg = (key, FilmGrain(fg, seq, seq.color.bitdepth,
+                                               self.device))
         return self._dev_fg[1].apply(planes)
 
 

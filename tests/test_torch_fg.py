@@ -1,4 +1,5 @@
-"""The port's film grain (`recon/fg_torch.py`) against the JAX package's
+"""The port's film grain (`recon/fg_torch.py`, whose CPU path is the plain
+version `recon/fg_plain.py`) against the JAX package's
 device path (`fg_jax.DeviceFilmGrain`) and its host reference
 (`fg_ref.FilmGrain`), on seeded planes: the cases of
 tests/test_fg_jax.py.  Above 8 bits the JAX package indexes the scaling
@@ -19,7 +20,7 @@ import torch
 from easyav1_tpu.video.av1 import fg_ref
 from easyav1_tpu.video.av1.recon.fg_jax import DeviceFilmGrain
 from easyav1_tpu_torch.native import film_grain_native
-from easyav1_tpu_torch.video.av1.recon import fg_torch
+from easyav1_tpu_torch.video.av1.recon import fg_plain, fg_torch
 
 from test_fg_jax import _Seq, _params
 
@@ -169,14 +170,14 @@ def test_host_tables_are_the_reference_copies(lag, ssx, ssy, mono, bd):
     from easyav1_tpu.video.av1.recon.fg_jax import _block_randvals
     fg = _libaom_like(_params(lag=lag, seed=1234 + lag))
     for a, b in zip(fg_ref.generate_grain(fg, bd, ssx, ssy, mono),
-                    fg_torch.generate_grain(fg, bd, ssx, ssy, mono)):
+                    fg_plain.generate_grain(fg, bd, ssx, ssy, mono)):
         assert (a is None and b is None) or np.array_equal(a, b)
     assert np.array_equal(
         fg_ref.scaling_lut(fg.point_y_value, fg.point_y_scaling, bd),
-        fg_torch.scaling_lut(fg.point_y_value, fg.point_y_scaling, bd))
+        fg_plain.scaling_lut(fg.point_y_value, fg.point_y_scaling, bd))
     assert np.array_equal(_block_randvals(fg.grain_seed, 5, 9),
-                          fg_torch.block_randvals(fg.grain_seed, 5, 9))
+                          fg_plain.block_randvals(fg.grain_seed, 5, 9))
     s = 0xACE1
     for bits in (8, 11, 8):
-        assert fg_ref._rand(s, bits) == fg_torch._rand(s, bits)
+        assert fg_ref._rand(s, bits) == fg_plain._rand(s, bits)
         s = fg_ref._rand(s, bits)[0]

@@ -47,8 +47,8 @@ from easyav1_tpu_torch.native import film_grain_native
 from easyav1_tpu_torch.unit_programs import (MI_COLS, MI_ROWS,
                                              random_mc_program,
                                              random_program)
-from easyav1_tpu_torch.video.av1.recon import (cdef_torch, fg_torch,
-                                               inter_mc, resident)
+from easyav1_tpu_torch.video.av1.recon import (cdef_torch, fg_plain,
+                                               fg_torch, inter_mc, resident)
 from easyav1_tpu_torch.video.av1.recon.intra_strip import strip_exec_plain
 from easyav1_tpu_torch.video.av1.recon.postfilter import postfilter_frame
 from easyav1_tpu_torch.video.av1.recon.records import narrow_residual
@@ -328,10 +328,10 @@ def test_grain_scaling_at_12_bits_vs_the_c_grain():
     for p in range(3):
         _assert_equal(got[p].numpy(), want[p], f"plane {p}")
         _assert_equal(got[p].numpy(), spec[p], f"plane {p} vs fg_ref spec")
-    lut = torch.tensor(fg_torch.scaling_lut(fg.point_y_value,
+    lut = torch.tensor(fg_plain.scaling_lut(fg.point_y_value,
                                             fg.point_y_scaling, bd))
     v = torch.arange(1 << bd)
-    s = fg_torch.scale_lut(lut, v, bd)
+    s = fg_plain.scale_lut(lut, v, bd)
     assert torch.equal(s[::16], lut[:256]) and int(s[-1]) == int(lut[255])
 
 

@@ -8,26 +8,34 @@
   thread's "decode";
 - the bytes the pipe copies, on the spans that copy them;
 - a declined frame carries its reason;
-- `trace.counters()` against `pipe.stats` and the launchers' counters.
+- film grain: its "fg_templates" span inside "grain", made or cached;
+- `trace.counters()` against `pipe.stats`, the launchers' counters and
+  the film grain template sets made.
 """
 
 import os
 import threading
 from collections import defaultdict
+from types import SimpleNamespace
 
 import pytest
+import torch
 
 import easyav1_tpu_torch
 from easyav1_tpu_torch import trace
 from easyav1_tpu_torch.native import pipe
-from easyav1_tpu_torch.video.av1.recon import (cdef_torch, inter_mc,
-                                               intra_strip, itx_torch,
-                                               lf_torch, lr_torch,
-                                               resident)
+from easyav1_tpu_torch.unit_programs import random_fg_case
+from easyav1_tpu_torch.video.av1.backend import AV1Backend
+from easyav1_tpu_torch.video.av1.recon import (cdef_torch, fg_torch,
+                                               inter_mc, intra_strip,
+                                               itx_torch, lf_torch,
+                                               lr_torch, resident)
 
 SMOKE = os.path.join(os.path.dirname(__file__), "data", "smoke")
 # compound, warps and OBMC: 1 key and 7 inter frames
 INTER_MODES = os.path.join(SMOKE, "inter_modes_96x96.webm")
+# two key frames, each with film grain of its own seed
+GRAIN = os.path.join(SMOKE, "fgreal_7cdd830f.webm")
 KEY_STAGES = {"entropy", "prepare", "compose", "upload", "intra", "lf_cdef",
               "tail"}
 INTER_STAGES = KEY_STAGES | {"plan", "mc"}
@@ -200,7 +208,42 @@ LAUNCHERS = {"intra_wavefront_kernel": intra_strip.strip_exec_frame,
              "cdef_dirs_kernel": cdef_torch.dirs_launch,
              "cdef_filter_kernel": cdef_torch.filter_launch,
              "lr_frame_kernel": lr_torch.lr_launch,
+             "fg_frame_kernel": fg_torch.fg_launch,
              "frame_hash_kernel": resident.frame_hash_device}
+
+
+def test_grain_templates_have_a_span_inside_grain_and_a_counter():
+    before = trace.counters()
+    easyav1_tpu_torch.stats.update(frames=0, fallbacks=0)
+    n, spans = _traced(GRAIN)
+    after = trace.counters()
+    assert n == 2 and easyav1_tpu_torch.stats["fallbacks"] == 0
+    by_id = {sp.id: sp for sp in spans}
+    made = [sp for sp in spans if sp.name == "fg_templates"]
+    assert [by_id[sp.parent].name for sp in made] == ["grain", "grain"]
+    # the two frames' seeds differ: each makes its own templates
+    assert [sp.attrs for sp in made] == [{"cached": False}] * 2
+    assert after["fg.templates"] - before["fg.templates"] == 2
+    # the CPU runs the plain version: no launch
+    assert after["launches.fg_frame_kernel"] == \
+        before["launches.fg_frame_kernel"]
+
+
+def test_grain_templates_of_the_same_parameters_are_cached():
+    fg, seq, planes = random_fg_case(3, 40, 24)
+    be = SimpleNamespace(_dev_fg=None, device="cpu")
+    tin = [torch.from_numpy(p) for p in planes]
+    before = fg_torch.FilmGrain.generated
+    trace.start()
+    try:
+        first = AV1Backend._film_grain_device(be, fg, seq, tin)
+        again = AV1Backend._film_grain_device(be, fg, seq, tin)
+    finally:
+        spans = trace.stop()
+    assert fg_torch.FilmGrain.generated == before + 1
+    assert [sp.attrs["cached"] for sp in spans
+            if sp.name == "fg_templates"] == [False, True]
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.parametrize("kernel", sorted(LAUNCHERS))

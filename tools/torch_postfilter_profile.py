@@ -16,8 +16,8 @@ csrc/loopfilter.cu and csrc/cdef.cu, three launches a frame at most)
 and as plain torch ops
 (`postfilter_apply_plain`, the eager chain those kernels replaced),
 loop restoration (`lr_torch`, host maps included) and film grain
-(`fg_torch`, the per-frame host random values included, the templates
-made before) on the second.  It prints, per
+(`fg_torch`: its kernel, csrc/fg.cu, the templates made before) on the
+second.  It prints, per
 frame and stage: the device operations (kernels and copies), their
 summed device time, the time the device is busy (the union of their
 intervals), the stage's wall time on the host clock with the device
