@@ -64,8 +64,8 @@ Then:
    key frame, with 20 runs of each kernel on the 1080p key frame
    bit-equal to the first;
 2. drives the port's main path through `easyav1_tpu_torch.EasyAV1(path,
-   device="cuda")`, each stream with the launch counts set to 0 just
-   before it and read just after: all 30 frames of
+   device="cuda")`, each stream's launch counts read just before it and
+   just after: all 30 frames of
    tests/data/bench/bench_av1_intra_1920x1080_30.webm, all 60 frames of
    bench_av1_inter_1920x1080_60.webm, all 24 frames of
    bench_av1_4k_3840x2160_24.webm, and the 8 frames of
@@ -141,8 +141,8 @@ Then:
    frames, and its port, resident and native fps; the device composer
    on the two key frames' records beside its plain version, its bound
    on the packed input and the first design's on the dense input, and
-   the first design (tools/torch_itx_first.cu, in a process of its own
-   through tools/torch_itx_variants.py) on the dense records; and on the
+   the first design (tools/torch_itx_first.cu, in a process of its own,
+   `itx_first_design`) on the dense records; and on the
    1080p intra, 1080p inter and 4K 10-bit streams, with each composer,
    the stages "prepare", "pack", "compose" and "upload", the residual's
    upload bytes a frame and the port's fps, beside the native C
@@ -252,15 +252,14 @@ MC_PROGRAMS_16 = [(32, 1920, 1080, 12), (31, 1920, 1080, 10),
                   (33, 1278, 718, 10)]
 # (seed, bit depth) of the strip kernel's high-bit-depth programs
 STRIP_HBD = [(301, 10), (305, 10), (304, 12), (317, 12)]
-# the kernels' launch counters, by the name of the kernels line
-COUNTERS = {"intra_strip": intra_strip.strip_exec_frame,
-            "inter_mc": inter_mc.mc_launch, "obmc": inter_mc.obmc_launch,
-            "frame_hash": resident.frame_hash_device,
-            "itx_compose": itx_torch.compose_residual,
-            "deblock": lf_torch.lf_launch,
-            "cdef_dirs": cdef_torch.dirs_launch,
-            "cdef_filter": cdef_torch.filter_launch,
-            "lr": lr_torch.lr_launch, "fg": fg_torch.fg_launch}
+# the kernels' launch counters of `trace.counters()`, by the name of the
+# kernels line
+COUNTERS = {"intra_strip": "intra_wavefront_kernel", "inter_mc": "mc_kernel",
+            "obmc": "obmc_kernel", "frame_hash": "frame_hash_kernel",
+            "itx_compose": "itx_kernel", "deblock": "lf_frame_kernel",
+            "cdef_dirs": "cdef_dirs_kernel",
+            "cdef_filter": "cdef_filter_kernel", "lr": "lr_frame_kernel",
+            "fg": "fg_frame_kernel"}
 # the LF + CDEF kernels' counters; the others but "lr" and "fg" are the
 # recon kernels'
 PF_KERNELS = ("deblock", "cdef_dirs", "cdef_filter")
@@ -300,8 +299,9 @@ def check(cond, what):
 
 
 def build():
-    """The C decoder, the C ABI's library and client, and the four
-    kernel libraries, built at once; prints ptxas's reports."""
+    """The C decoder, the C ABI's library and client, the kernel
+    libraries and the yardsticks, built at once; prints ptxas's
+    reports."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2 + len(KERNEL_SOURCES) + len(YARDSTICKS)) \
             as ex:
@@ -322,13 +322,12 @@ def build():
                 print(f"{name}: {line.strip()}")
 
 
-def reset_counts():
-    for fn in COUNTERS.values():
-        fn.launches = 0
-
-
-def counts():
-    return {name: fn.launches for name, fn in COUNTERS.items()}
+def counts(since):
+    """Each kernel's launches since `since`, a reading of
+    `trace.counters()`."""
+    now = trace.counters()
+    return {name: now[f"launches.{k}"] - since[f"launches.{k}"]
+            for name, k in COUNTERS.items()}
 
 
 def traced_stages(make):
@@ -1162,9 +1161,9 @@ def check_torch_stages(dev):
             (f"bench stream frame {i}", g)
             for i, g in enumerate(stream_grain(LR_GRAIN_1080))]:
         grain = fg_torch.FilmGrain(p, sq, 8, dev)
-        before = fg_torch.fg_launch.launches
+        before = trace.counters()
         got = grain.apply(on_dev)
-        launches = fg_torch.fg_launch.launches - before
+        launches = counts(before)["fg"]
         plain = grain.apply_plain(on_dev)
         want = fg_torch.FilmGrain(p, sq, 8, cpu).apply(u8)
         e = max(max_err([g.cpu().int() for g in got],
@@ -1199,9 +1198,9 @@ def check_lr(dev):
         lr = lr_torch.LoopRestoration(hdr, seq, plan, bd)
         tp = [torch.from_numpy(p).to(dev) for p in planes]
         td = [torch.from_numpy(d).to(dev) for d in debl]
-        before = lr_torch.lr_launch.launches
+        before = trace.counters()
         got = lr.apply(tp, td)
-        launched = lr_torch.lr_launch.launches - before
+        launched = counts(before)["lr"]
         want = lr.apply_plain(tp, td)
         e = max_err([g.cpu() for g in got], [x.cpu() for x in want])
         if name.startswith("1920"):
@@ -1455,7 +1454,7 @@ class PostfilterCalls:
 
 
 def recon_counts(c):
-    """The recon kernels' counts of `counts()`, in COUNTERS order."""
+    """The recon kernels' counts of `counts`, in COUNTERS order."""
     return tuple(v for k, v in c.items()
                  if k not in PF_KERNELS + ("lr", "fg"))
 
@@ -1466,8 +1465,8 @@ def pf_counts(c):
 
 def main_path(streams, host_residual=True):
     """Phase 2: the port's main path, hash-equal to native C, each
-    stream with the launch counts set to 0 just before it and read just
-    after; with the host composer, then the resident decode of the same
+    stream's launch counts read just before it and just after; with the
+    host composer, then the resident decode of the same
     stream, its device hashes against those of the frames pulled through
     the API, with the hash kernel's launches counted.  With the device
     composer (host_residual False), one device composer launch a frame
@@ -1476,11 +1475,11 @@ def main_path(streams, host_residual=True):
     total = dict.fromkeys(COUNTERS, 0)
     for name, path, n, want in streams:
         easyav1_tpu_torch.stats.update(frames=0, fallbacks=0)
-        reset_counts()
+        c0 = trace.counters()
         with ComposerCalls() as composer, PostfilterCalls() as pf:
             port, _ = decode_hashes(lambda: easyav1_tpu_torch.EasyAV1(
                 path, device="cuda", host_residual=host_residual))
-        c = counts()
+        c = counts(c0)
         stats = dict(easyav1_tpu_torch.stats)
         native_h = native_hashes(path)
         mode = "" if host_residual else " (device composer)"
@@ -1508,11 +1507,11 @@ def main_path(streams, host_residual=True):
         if not host_residual:
             continue
         easyav1_tpu_torch.stats.update(frames=0, fallbacks=0)
-        reset_counts()
+        c0 = trace.counters()
         m = min(n, RESIDENT_FRAMES)
         got_n, wall, hashes, frames = resident.decode_resident(
             path, "cuda", max_frames=m)
-        c = counts()
+        c = counts(c0)
         lazy = [f.data.materialised for f in frames]
         print(f"resident {name}: {got_n} frames in {wall:.3f} s, "
               f"hash launches {c['frame_hash']}, planes downloaded "
@@ -1880,11 +1879,13 @@ def pf_bounds(f, var):
     return out
 
 
-# The yardsticks the deblocking and the CDEF filter are timed against:
-# their first designs, and the two-launch deblocking on cell maps that the
-# one-launch tile was raced against.  Library name "<source>_<tag>": its
-# source, and the extern names a build suffixes with "_<tag>" so that it
-# stands beside the shipped kernels in one process
+# The yardsticks the deblocking, the CDEF filter and the device composer
+# are timed against: their first designs, and the two-launch deblocking
+# on cell maps that the one-launch tile was raced against.  Library name
+# "<source>_<tag>": its source, and the extern names a build suffixes
+# with "_<tag>" so that it stands beside the shipped kernels in one
+# process (none for the composer's, which runs in a process of its own,
+# `itx_first_design`)
 YARDSTICKS = {
     "loopfilter_first": ("tools/torch_loopfilter_first.cu",
                          ("lf_pass_kernel", "lf_pass_launch")),
@@ -1893,7 +1894,8 @@ YARDSTICKS = {
                     "cdef_dirs_launch", "cdef_filter_launch", "kDirs",
                     "kUvDir")),
     "loopfilter_twopass": ("tools/torch_loopfilter_twopass.cu",
-                           ("lf_frame_kernel", "lf_frame_launch"))}
+                           ("lf_frame_kernel", "lf_frame_launch")),
+    "itx_first": ("tools/torch_itx_first.cu", ())}
 
 
 def build_yardstick(name):
@@ -2291,23 +2293,63 @@ def hbd_timings(key, c, prog, dev):
     return out
 
 
+def itx_first_design():
+    """The device composer's first design (tools/torch_itx_first.cu, the
+    yardstick "itx_first" of `build`) on the dense records of the 1080p
+    intra and the 4K 10-bit key frames: one zero fill of the planes and
+    one launch a call, held to `compose_residual_plain` and timed by
+    `cuda_ms`.  Prints {frame: {"ms": ...}} as one JSON line.
+    `itx_timings` runs it in a process of its own: two builds of one
+    kernel in one process have faulted on the card."""
+    dev = torch.device("cuda", 0)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = ctypes.CDLL(str(_build.BUILD / "itx_first.so")).itx_compose_launch
+    fn.restype = ci
+    fn.argtypes = [ctypes.c_int64, vp, vp, ctypes.c_int64, ci, vp, vp, vp,
+                   ci, vp]
+    out = {}
+    for name, path in (("1080p", INTRA_1080), ("4K 10-bit", HBD_4K)):
+        k = first_frame_inputs(path, dev, host_residual=False)
+        check(k is not None and k["records"] is not None,
+              f"{path} frame 0 declined")
+        dims, bd = k["recon"].dims, k["recon"].bd
+        txs, co = (torch.from_numpy(a).to(dev) for a in k["dense"])
+        sizes, n = [h * w for h, w in dims], len(dims)
+
+        def compose():
+            flat = torch.zeros(sum(sizes), dtype=itx_torch.residual_dtype(bd),
+                               device=dev)
+            planes = [v.view(d) for v, d in zip(flat.split(sizes), dims)]
+            rc = fn(txs.shape[0], txs.data_ptr(), co.data_ptr(), co.shape[0],
+                    n, (vp * n)(*(p.data_ptr() for p in planes)),
+                    (ci * n)(*(h for h, _ in dims)),
+                    (ci * n)(*(w for _, w in dims)), bd,
+                    torch.cuda.current_stream(dev).cuda_stream)
+            check(rc == 0, f"the first design's launch: cudaError {rc}")
+            return planes
+
+        e = max_err([g.long() for g in compose()],
+                    [w.long() for w in itx_torch.compose_residual_plain(
+                        txs, co, dims, bd, dev)])
+        check(e == 0, f"the first design on {name}: max_abs_err {e}")
+        out[name] = {"ms": cuda_ms(compose, 20)}
+    print(json.dumps(out))
+
+
 def itx_timings(frames):
     """Phase 3: the device composer's kernel on the packed records of the
     1080p intra and the 4K 10-bit key frames (CUDA events, back to back),
     its plain version, its bound on the packed input and the first
     design's on the dense input, and the first design
     (tools/torch_itx_first.cu) on the dense records, timed in a process
-    of its own by tools/torch_itx_variants.py in this run."""
-    r = subprocess.run([sys.executable, os.path.join(
-        REPO, "tools", "torch_itx_variants.py"), "--run", "first"],
-        capture_output=True, text=True, timeout=600)
+    of its own by `itx_first_design`."""
+    r = subprocess.run([sys.executable, "-c",
+                        "import chip_smoke; chip_smoke.itx_first_design()"],
+                       cwd=REPO, capture_output=True, text=True, timeout=600)
     check(r.returncode == 0,
           f"the first design's run: rc {r.returncode}\n{r.stdout[-3000:]}"
           f"{r.stderr[-3000:]}")
-    first = json.loads(r.stdout.strip().splitlines()[-1])["frames"]
-    for line in r.stderr.splitlines():
-        if "spill" in line or "ptxas info" in line and "Used" in line:
-            print(f"itx first design: {line.strip()}")
+    first = json.loads(r.stdout.strip().splitlines()[-1])
     out = {}
     for name, rec in frames.items():
         ms = cuda_ms(rec.run, 20)
@@ -2524,7 +2566,7 @@ def run_client(path):
 def check_capi():
     """Phase 2b: the C ABI.  Its main pipe on every frame of the three
     bench streams and inter_modes_96x96, in this process, each stream
-    with the launch counts set to 0 just before it and read just after:
+    with its launch counts read just before it and just after:
     hash-equal to the native C session, no fallback, the launches of the
     Python API's main path; the 4K 10-bit stream again under
     `EASYAV1_HOST_RESID=0`, one device composer launch a frame that has
@@ -2546,13 +2588,13 @@ def check_capi():
         if device_composer:
             os.environ["EASYAV1_HOST_RESID"] = "0"
         easyav1_tpu_torch.stats.update(frames=0, fallbacks=0)
-        reset_counts()
+        c0 = trace.counters()
         try:
             with ComposerCalls() as composer, PostfilterCalls() as pf:
                 got, wall = abi.decode_hashes(path)
         finally:
             os.environ.pop("EASYAV1_HOST_RESID", None)
-        c, stats = counts(), dict(easyav1_tpu_torch.stats)
+        c, stats = counts(c0), dict(easyav1_tpu_torch.stats)
         native_h = native_hashes(path)
         print(f"C ABI {name}{mode}: {len(got)} frames in {wall:.3f} s, "
               f"stats {stats}, launches {c}")
@@ -2591,10 +2633,10 @@ def check_capi():
         for name, path, n in POSTFILTER_STREAMS:
             native_h = native_hashes(path)
             easyav1_tpu_torch.stats.update(frames=0, fallbacks=0)
-            reset_counts()
+            c0 = trace.counters()
             with SuperresFrames() as sr, PostfilterCalls() as pf:
                 got, wall = abi.decode_hashes(path)
-            c, stats = counts(), dict(easyav1_tpu_torch.stats)
+            c, stats = counts(c0), dict(easyav1_tpu_torch.stats)
             check(got == native_h and len(got) == n,
                   f"postfilter pipe {name}: {len(got)} frames, "
                   f"{sum(a != b for a, b in zip(got, native_h))} differ")
@@ -2701,9 +2743,9 @@ def check_multistream(dev):
         outs = {}
         for how, run in (("batched", multistream_av1.batched_postfilter_real),
                          ("loop", multistream_av1.batched_postfilter_loop)):
-            reset_counts()
+            c0 = trace.counters()
             outs[how] = run(frames, dev)
-            c = counts()
+            c = counts(c0)
             check(pf_counts(c) == want_pf[how] and not any(recon_counts(c)),
                   f"multi-stream batch {b} ({how}): launches {c}, want "
                   f"{want_pf[how]}")
@@ -3030,8 +3072,8 @@ def main():
     stage_inputs = check_torch_stages(dev)
     err_lr, lr_inputs = check_lr(dev)
     # the main path: the 8-bit streams, then the 10- and 12-bit ones (the
-    # kernels' uint16 instantiations); each stream's counts are set to 0
-    # just before it and read just after
+    # kernels' uint16 instantiations); each stream's counts are read just
+    # before it and just after
     launches = main_path(STREAMS)
     check(all(v > 0 for k, v in launches.items() if k != "itx_compose"),
           f"a kernel never ran on the 8-bit streams: {launches}")

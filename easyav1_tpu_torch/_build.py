@@ -6,6 +6,12 @@ ctypes.  Nothing builds on import: `load(name)` builds its source at
 first use and rebuilds a library older than its source.  The compiler's
 output, with ptxas's registers, shared memory and spills per kernel, is
 kept in `_build/<name>.log`.
+
+`Kernel` declares one launch function of such a library, once: the
+wrappers under `video/av1/recon/` launch their kernels through it, on
+the device's current stream, and it counts each launch that succeeds in
+`trace.counters()` as "launches.<kernel>".  `on_card` is the wrappers'
+dispatch between a kernel and its plain version.
 """
 
 from __future__ import annotations
@@ -16,7 +22,11 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
+
+import torch
+
+from easyav1_tpu_torch import trace
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -66,3 +76,48 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _libs[name] = ctypes.CDLL(str(build(name)))
         return lib
+
+
+class Kernel:
+    """A hand kernel's C launch function: `symbol` of the library of
+    `csrc/<lib>.cu`, taking `argtypes` and then the stream, returning a
+    cudaError_t.  Its launches count as "launches.<counter>", the
+    kernel's name in the profiler."""
+
+    def __init__(self, lib: str, symbol: str, argtypes: Sequence,
+                 counter: str):
+        self.lib, self.symbol = lib, symbol
+        self.argtypes = [*argtypes, ctypes.c_void_p]
+        self.counter = f"launches.{counter}"
+        self._fn = None
+        trace.count(self.counter, 0)
+
+    def launch(self, device, *args) -> None:
+        """Calls the function with `args` and `device`'s current stream,
+        loading (and building) its library at first use; raises if the
+        call returns an error."""
+        fn = self._fn
+        if fn is None:
+            fn = getattr(load(self.lib), self.symbol)
+            fn.restype = ctypes.c_int
+            fn.argtypes = self.argtypes
+            self._fn = fn
+        with torch.cuda.device(device):
+            rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.symbol}: cudaError {rc}")
+        trace.count(self.counter)
+
+
+def on_card(t: torch.Tensor, tensors: Sequence[torch.Tensor] = ()) -> bool:
+    """A wrapper's dispatch: False for a CPU tensor `t` (the plain version
+    runs); True for a CUDA one, with `tensors` all contiguous on its device
+    (the kernel launches); others raise."""
+    dev = t.device
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if any(x.device != dev or not x.is_contiguous() for x in tensors):
+        raise ValueError(f"want contiguous tensors on {dev}")
+    return True

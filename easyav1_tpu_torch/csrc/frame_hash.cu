@@ -23,15 +23,15 @@
 //   c S + sum k v_k, a row segment adds r times its S to B.
 // - Loads are 16 bytes (uint4), the aligned middle of a row segment of
 //   2048 bytes: a warp takes a segment, each lane up to four chunks,
-//   all four loads issued before any is used (HASH_SEG_BYTES).  The
+//   all four loads issued before any is used (kSegBytes).  The
 //   segment's samples before its first 16-byte boundary and after its
 //   last are read one by one (rows of a view, or of an odd pitch, start
 //   anywhere).
 // - A fixed grid of two CTAs an SM walks the segments of all planes by
-//   the grid's stride (HASH_CTAS_PER_SM; on a 4K 10-bit frame two beat
-//   four by some 15% and eight by 35%, tools/torch_hash_variants.py); a
-//   CTA reduces its threads' values by warp shuffles and shared memory
-//   and adds them to the planes' words with one atomicAdd a plane:
+//   the grid's stride (kCtasPerSm; on a 4K 10-bit frame two beat four by
+//   some 15% and eight by 35%); a CTA reduces its threads' values by
+//   warp shuffles and shared memory and adds them to the planes' words
+//   with one atomicAdd a plane:
 //   uint32 addition commutes, so the result does not depend on the order
 //   the CTAs finish in.  The last CTA to finish (a ticket counter) folds
 //   the planes' words into the hash.
@@ -44,20 +44,12 @@
 
 namespace {
 
-// Design switches, for tools/torch_hash_variants.py.
-#ifndef HASH_SEG_BYTES      // a warp's row segment: 32 lanes x 4 x 16 bytes
-#define HASH_SEG_BYTES 2048
-#endif
-#ifndef HASH_CTAS_PER_SM    // the fixed grid, in CTAs an SM
-#define HASH_CTAS_PER_SM 2
-#endif
-
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxPlanes = 3;
-constexpr int kSegBytes = HASH_SEG_BYTES;
+constexpr int kSegBytes = 2048;   // a warp's row segment, 32 x 4 x 16 bytes
 constexpr int kLaneChunks = kSegBytes / (32 * 16);  // 16-byte loads a lane
-constexpr int kCtasPerSm = HASH_CTAS_PER_SM;
+constexpr int kCtasPerSm = 2;     // the fixed grid, in CTAs an SM
 static_assert(kSegBytes % 512 == 0, "whole 16-byte chunks for every lane");
 constexpr uint32_t kRowK = 2654435761u;
 constexpr uint32_t kColK = 40503u;

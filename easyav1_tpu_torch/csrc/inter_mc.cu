@@ -87,22 +87,6 @@
 #include <cstring>
 #include <cuda_runtime.h>
 
-// Design switches, for tools/torch_mc_variants.py.
-#ifndef MC_ASYNC          // 1: the next tile's windows are staged while this one computes
-#define MC_ASYNC 1
-#endif
-#ifndef MC_WIDE           // 1: aligned 4-byte copies for windows inside the reference
-#define MC_WIDE 1
-#endif
-#ifndef MC_LIVE           // 1: stage and run live taps only
-#define MC_LIVE 1
-#endif
-#ifndef MC_WARPS          // warps (tiles in flight) a CTA
-#define MC_WARPS 8
-#endif
-#ifndef MC_CTAS_PER_SM    // 3: 85 registers a thread; at 4 (64) both spill
-#define MC_CTAS_PER_SM 3
-#endif
 // The launch, as a macro so that a host build can run the kernels
 // (tools/torch_mc_host_run.py).
 #ifndef MC_LAUNCH
@@ -125,11 +109,13 @@ enum { B_KIND, B_PLANE, B_W, B_H, B_UNIT, B_TILE, B_MASK, NB = 8 };
 enum { K_X, K_Y, K_OV, K_NA, K_NL, NK };
 enum { O_W = NS, O_H, NOV };
 
-// Warps a CTA, and the samples of a window buffer: 39 rows x 20, or
-// 23 x 28, of uint8; 39 x 16, or 23 x 24, of uint16 (win_pitch).  The
-// uint16 windows are twice the bytes: 7 warps keep the static shared
-// memory at 45,920 bytes, and 8 would pass the 48 KB limit.
-template <typename T> constexpr int kWarps = sizeof(T) == 1 ? MC_WARPS : 7;
+// Warps (tiles in flight) a CTA, and the samples of a window buffer: 39
+// rows x 20, or 23 x 28, of uint8; 39 x 16, or 23 x 24, of uint16
+// (win_pitch).  The uint16 windows are twice the bytes: 7 warps keep the
+// static shared memory at 45,920 bytes, and 8 would pass the 48 KB limit.
+template <typename T> constexpr int kWarps = sizeof(T) == 1 ? 8 : 7;
+// CTAs an SM: 85 registers a thread; at 4 (64) both kernels spill
+constexpr int kCtasPerSm = 3;
 template <typename T> constexpr int kWinElems = sizeof(T) == 1 ? 784 : 624;
 constexpr int MAXB = 512;        // inter_mc.MAX_BUCKETS
 constexpr int MID_ELEMS = 416;   // 23 rows x 18 int16, or 39 x 10
@@ -256,7 +242,6 @@ struct Pred {
 };
 
 __device__ __forceinline__ void live_taps(const int* f, int& a, int& b) {
-#if MC_LIVE
   a = 7;
   b = 0;
 #pragma unroll
@@ -264,10 +249,6 @@ __device__ __forceinline__ void live_taps(const int* f, int& a, int& b) {
 #pragma unroll
   for (int k = 0; k < 8; ++k) if (f[k] != 0) b = k;
   if (a > b) a = b = 3;     // no tap at all: the prediction is 0
-#else
-  a = 0;
-  b = 7;
-#endif
 }
 
 // p: slot, ix, iy; taps: fh[8], fv[8] (a single unit's from S_SLOT and
@@ -314,7 +295,7 @@ __device__ __forceinline__ void stage(const Pred<T>& P, int rw, int rh,
   const int cs = P.c0, ncols = iw + P.c1 - P.c0;
   const int rs = P.r0, nrows = ih + P.r1 - P.r0;
   const int xs = P.x0 + cs, ys = P.y0 + rs;
-  if (MC_WIDE && xs >= 0 && xs + ncols <= rw && ys >= 1
+  if (xs >= 0 && xs + ncols <= rw && ys >= 1
       && ys + nrows <= rh - 1) {
     // rows strictly inside: the up to S - 1 samples read before and
     // after a row's pixels stay in the plane
@@ -351,7 +332,7 @@ __device__ __forceinline__ void hpass(const Pred<T>& P, int rw, int iw,
   const int rs = P.r0, nrows = ih + P.r1 - P.r0;
   const int gpr = (iw + 3) >> 2, lg = lg2(gpr);
   const bool pow2 = (1 << lg) == gpr;
-  const bool one = MC_LIVE && P.c0 == 3 && P.c1 == 3;
+  const bool one = P.c0 == 3 && P.c1 == 3;
   for (int k = lane; k < nrows * gpr; k += 32) {
     const int q = pow2 ? k >> lg : k / gpr;
     const int r = rs + q, c = (k - q * gpr) * 4;
@@ -390,7 +371,7 @@ __device__ __forceinline__ void vpass(const Pred<T>& P, int dx, int dy, int iw,
 #pragma unroll
   for (int o = 0; o < 8; ++o) acc[o] = 0;
   if (c < 0 || c >= iw) return;
-  if (MC_LIVE && P.r0 == 3 && P.r1 == 3) {
+  if (P.r0 == 3 && P.r1 == 3) {
 #pragma unroll
     for (int o = 0; o < 8; ++o) {
       const int r = rb + o;
@@ -611,7 +592,7 @@ __device__ __forceinline__ void load_first(const Tabs& B, int* first,
 // Kernel 6a: each warp walks work indices, one tile of a single, pair
 // or warp unit each.
 template <typename T>
-__global__ void __launch_bounds__(32 * kWarps<T>, MC_CTAS_PER_SM)
+__global__ void __launch_bounds__(32 * kWarps<T>, kCtasPerSm)
 mc_kernel(Frame<T> F, Tabs B, const int32_t* wf) {
   constexpr int W = kWarps<T>;
   __shared__ int first[MAXB + 1];
@@ -627,27 +608,17 @@ mc_kernel(Frame<T> F, Tabs B, const int32_t* wf) {
   WarpMem<T>& m = mem[warp];
   int set = 0;
   int idx = blockIdx.x * W + warp;
-#if MC_ASYNC
   if (idx < B.total) stage_item(F, B, first, idx, m, 0, lane);
   cp_async_commit();
-#endif
   for (; idx < B.total; idx += stride) {
-#if MC_ASYNC
     if (idx + stride < B.total)
       stage_item(F, B, first, idx + stride, m, set ^ 1, lane);
     cp_async_commit();
     cp_async_wait<1>();       // all but the group just committed
-#else
-    stage_item(F, B, first, idx, m, set, lane);
-    cp_async_commit();
-    cp_async_wait<0>();
-#endif
     __syncwarp();
     compute_item(F, B, first, swf, idx, m, set, lane);
     __syncwarp();             // before the set is staged again
-#if MC_ASYNC
     set ^= 1;
-#endif
   }
   cp_async_wait<0>();
 }
@@ -676,7 +647,7 @@ __device__ __forceinline__ bool reach(const int32_t* f, int tx, int ty,
 // each.  masks: the OBMC masks of lengths 2..32, the one of length n at
 // offset n - 2.
 template <typename T>
-__global__ void __launch_bounds__(32 * kWarps<T>, MC_CTAS_PER_SM)
+__global__ void __launch_bounds__(32 * kWarps<T>, kCtasPerSm)
 obmc_kernel(Frame<T> F, Tabs B, const int32_t* masks) {
   constexpr int W = kWarps<T>;
   __shared__ int first[MAXB + 1];
@@ -783,7 +754,7 @@ Frame<T> make_frame(int np, void* const* out, const void* const* resid,
 }
 
 // The fixed grid: enough CTAs of `warps` warps for the work, at most
-// MC_CTAS_PER_SM on each SM of the current device.
+// kCtasPerSm on each SM of the current device.
 int grid_for(int total, int warps) {
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess
@@ -791,7 +762,7 @@ int grid_for(int total, int warps) {
              != cudaSuccess || sms < 1)
     sms = 132;
   const int want = (total + warps - 1) / warps;
-  return want < sms * MC_CTAS_PER_SM ? want : sms * MC_CTAS_PER_SM;
+  return want < sms * kCtasPerSm ? want : sms * kCtasPerSm;
 }
 
 template <typename T>

@@ -95,8 +95,8 @@
 //   one value the same way.  A 64-high column (more rows than the stage
 //   holds) stores straight from registers, a lane a sample of each row,
 //   the group's lanes on neighbouring samples.  Storing the small
-//   classes that way too (ITX_WIDE_FROM) measured within 6% either way
-//   on the key frames (tools/torch_itx_variants.py).
+//   classes that way too measured within 6% either way on the key
+//   frames.
 // The first design (a warp a record, all ah rows staged from the dense
 // coefficients) is kept as tools/torch_itx_first.cu.
 
@@ -111,25 +111,12 @@
   kernel<<<grid, threads, 0, stream>>>(__VA_ARGS__)
 #endif
 
-// Design switches, for tools/torch_itx_variants.py (the defaults ship)
-#ifndef ITX_ASYNC           // 1: a ring of stages; 0: stage, wait, compute
-#define ITX_ASYNC 1
-#endif
-#ifndef ITX_WIDE_FROM       // the first class whose full records store
-#define ITX_WIDE_FROM 0     // from the stage in 16-byte pieces; below it a
-#endif                      // lane a column stores its samples
-#ifndef ITX_DUAL            // 1: frames of small transforms take a second
-#define ITX_DUAL 1          // instantiation at ITX_DUAL_CTAS CTAs an SM
-#endif
-#ifndef ITX_DUAL_CTAS
-#define ITX_DUAL_CTAS 6
-#endif
-
 namespace {
 
 constexpr int kWarps = 4;                 // warps a CTA
 constexpr int kThreads = 32 * kWarps;
 constexpr int kCtasPerSm = 4;             // caps registers at 128 a thread
+constexpr int kSmallCtasPerSm = 6;        // frames of small transforms
 constexpr int kMaxPlanes = 3;
 constexpr int kClasses = 5;
 // A staged record's header, written by the first lane of its group: two
@@ -152,11 +139,9 @@ __host__ __device__ constexpr int item_words(int c) {
   return 32 / group_lanes(c) * (kHead + slot_words(c));
 }
 __host__ __device__ constexpr int depth(int c) {
-  return !ITX_ASYNC ? 1
-         : kWarpWords / item_words(c) < 4 ? kWarpWords / item_words(c) : 4;
+  return kWarpWords / item_words(c) < 4 ? kWarpWords / item_words(c) : 4;
 }
-static_assert(depth(4) >= 1 && (depth(3) >= 2 || !ITX_ASYNC),
-              "ring too small");
+static_assert(depth(4) >= 1 && depth(3) >= 2, "ring too small");
 
 enum { kDct = 0, kAdst = 1, kFlip = 2, kIdtx = 3 };
 
@@ -655,11 +640,11 @@ __device__ void row_n(const Itx<W>& f, int kind, int32_t* p, int nzw,
 }
 
 // The column pass of one column of N samples (pitch apart in shared
-// memory, zero from row nzh).  With WIDE and N up to 32 the outputs go
-// back in place, for the wide stores; else its first `rows` outputs are
-// stored `dpitch` apart from dst (the group's lanes on neighbouring
-// samples of each row).
-template <typename W, typename OutT, int N, bool WIDE>
+// memory, zero from row nzh).  With N up to 32 the outputs go back in
+// place, for the wide stores; else its first `rows` outputs are stored
+// `dpitch` apart from dst (the group's lanes on neighbouring samples of
+// each row).
+template <typename W, typename OutT, int N>
 __device__ void col_n(const Itx<W>& f, int kind, int32_t* p, int pitch,
                       int nzh, OutT* dst, int64_t dpitch, int rows) {
   constexpr int NA = N < 32 ? N : 32;
@@ -669,7 +654,7 @@ __device__ void col_n(const Itx<W>& f, int kind, int32_t* p, int pitch,
 #pragma unroll
   for (int i = NA; i < N; ++i) v[i] = 0;
   f.template tx1d<N>(kind, v);
-  if constexpr (N <= 32 && WIDE) {
+  if constexpr (N <= 32) {
 #pragma unroll
     for (int i = 0; i < N; ++i) p[i * pitch] = (v[i] + 8) >> 4;
   } else {
@@ -705,25 +690,24 @@ template <typename W, typename OutT, int C>
 __device__ void col_pass(const Itx<W>& f, int lh, int kind, int32_t* p,
                          int pitch, int nzh, OutT* dst, int64_t dpitch,
                          int rows) {
-  constexpr bool kWide = C >= ITX_WIDE_FROM;
   if constexpr (C == 0) {
-    col_n<W, OutT, 4, kWide>(f, kind, p, pitch, nzh, dst, dpitch, rows);
+    col_n<W, OutT, 4>(f, kind, p, pitch, nzh, dst, dpitch, rows);
   } else if constexpr (C == 1 || C == 2) {
     if (lh == 2)
-      col_n<W, OutT, 4, kWide>(f, kind, p, pitch, nzh, dst, dpitch, rows);
+      col_n<W, OutT, 4>(f, kind, p, pitch, nzh, dst, dpitch, rows);
     else if (C == 1 || lh == 3)
-      col_n<W, OutT, 8, kWide>(f, kind, p, pitch, nzh, dst, dpitch, rows);
+      col_n<W, OutT, 8>(f, kind, p, pitch, nzh, dst, dpitch, rows);
     else
-      col_n<W, OutT, 16, kWide>(f, kind, p, pitch, nzh, dst, dpitch, rows);
+      col_n<W, OutT, 16>(f, kind, p, pitch, nzh, dst, dpitch, rows);
   } else {
     if (C == 3 && lh == 3)
-      col_n<W, OutT, 8, kWide>(f, kind, p, pitch, nzh, dst, dpitch, rows);
+      col_n<W, OutT, 8>(f, kind, p, pitch, nzh, dst, dpitch, rows);
     else if (lh == 4)
-      col_n<W, OutT, 16, kWide>(f, kind, p, pitch, nzh, dst, dpitch, rows);
+      col_n<W, OutT, 16>(f, kind, p, pitch, nzh, dst, dpitch, rows);
     else if (lh == 5)
-      col_n<W, OutT, 32, kWide>(f, kind, p, pitch, nzh, dst, dpitch, rows);
+      col_n<W, OutT, 32>(f, kind, p, pitch, nzh, dst, dpitch, rows);
     else
-      col_n<W, OutT, 64, kWide>(f, kind, p, pitch, nzh, dst, dpitch, rows);
+      col_n<W, OutT, 64>(f, kind, p, pitch, nzh, dst, dpitch, rows);
   }
 }
 
@@ -945,7 +929,7 @@ __device__ __forceinline__ void compute_item(const Args& a, int32_t* st,
                            c < cols ? rows : 0);
   }
   __syncwarp();
-  if (ok == 2 || (full && C >= ITX_WIDE_FROM && h <= 32))
+  if (ok == 2 || (full && h <= 32))
     store_block<OutT, G>(ok == 2 ? nullptr : s, pitch,
                          ok == 2 ? f.dc_value(s[0], rect, kRowShift[tsz]) : 0,
                          out, pw, w, rows, cols, gl);
@@ -1002,9 +986,7 @@ __global__ void __launch_bounds__(kThreads, CTAS) itx_kernel(Args a) {
 // The instantiation a frame takes (see itx_compose_launch)
 template <typename W, typename OutT>
 void (*kernel_for(bool small))(Args) {
-#if ITX_DUAL
-  if (small) return itx_kernel<W, OutT, ITX_DUAL_CTAS>;
-#endif
+  if (small) return itx_kernel<W, OutT, kSmallCtasPerSm>;
   return itx_kernel<W, OutT, kCtasPerSm>;
 }
 
@@ -1059,11 +1041,11 @@ extern "C" int itx_compose_launch(int64_t n, const void* txs,
              != cudaSuccess || sms < 1)
     sms = 132;
   // A frame whose 32-lane items are at most a 16th of its items (small
-  // transforms: the 4K 10-bit key frame's 8x8s) runs at ITX_DUAL_CTAS
+  // transforms: the 4K 10-bit key frame's 8x8s) runs at kSmallCtasPerSm
   // CTAs an SM, more warps to hide latency with fewer registers (the 32-
   // and 64-point paths spill there); any other at kCtasPerSm.
-  const bool small = ITX_DUAL && 16 * (items - a.base[3]) <= items;
-  const int ctas = small ? ITX_DUAL_CTAS : kCtasPerSm;
+  const bool small = 16 * (items - a.base[3]) <= items;
+  const int ctas = small ? kSmallCtasPerSm : kCtasPerSm;
   const int want = (items + kWarps - 1) / kWarps;
   const int grid = want < sms * ctas ? want : sms * ctas;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -54,6 +54,8 @@ def _count(fallback: bool) -> None:
     with _stats_lock:
         stats["frames"] += 1
         stats["fallbacks"] += int(fallback)
+    trace.count("pipe.frames")
+    trace.count("pipe.fallbacks", int(fallback))
 
 
 # The stage clock of a frame (`trace.Stages`): its marks name the stages

@@ -33,9 +33,12 @@ The spans, by layer:
   frame first.  The spans inside which the port copies between host and
   device carry the bytes as "h2d_bytes" and "d2h_bytes".
 
-`counters()` reads the port's counters in one place: frames and
-fallbacks of the pipe, each hand kernel's launches, and the film grain
-template sets made.
+`count(name, n)` adds to one of the port's counters, at the site that
+does what it counts, and `counters()` reads them all: frames and
+fallbacks of the pipe, each hand kernel's launches, the strip kernel's
+units and levels, and the film grain template sets made.  Counters are
+never reset: a reader takes the difference of two readings.  This module
+imports nothing of the port, which every layer of it imports.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ import functools
 import itertools
 import threading
 import time
+from collections import Counter
 from typing import Dict, List, Optional
 
 # the one check of every span site
@@ -54,6 +58,9 @@ _spans: List["Span"] = []
 _threads: Dict[int, int] = {}
 _local = threading.local()
 _ids = itertools.count(1)
+# the counters: name -> count
+_counts: Counter = Counter()
+_counts_lock = threading.Lock()
 
 
 class Span:
@@ -247,34 +254,21 @@ def thread_ids() -> Dict[int, int]:
     return dict(_threads)
 
 
-def counters() -> Dict[str, int]:
-    """The port's counters: "pipe.frames" (frames that reached the
-    pipe), "pipe.fallbacks" (those declined to the C recon),
-    "fg.templates" (film grain template sets made), "strip.units" and
-    "strip.levels" (the strip kernel's units launched, and its steps:
-    the levels summed over the SBs, a unit each under the sequential
-    schedule), and "launches.<kernel>" for each hand kernel, named as
-    the profiler names it."""
-    from easyav1_tpu_torch.native import pipe
-    from easyav1_tpu_torch.video.av1.recon import (cdef_torch, fg_torch,
-                                                   inter_mc, intra_strip,
-                                                   itx_torch, lf_torch,
-                                                   lr_torch, resident)
-    out = {"pipe.frames": pipe.stats["frames"],
-           "pipe.fallbacks": pipe.stats["fallbacks"],
-           "fg.templates": fg_torch.FilmGrain.generated,
-           "strip.units": intra_strip.strip_exec_frame.units,
-           "strip.levels": intra_strip.strip_exec_frame.levels}
-    for kernel, fn in (("intra_wavefront_kernel",
-                        intra_strip.strip_exec_frame),
-                       ("mc_kernel", inter_mc.mc_launch),
-                       ("obmc_kernel", inter_mc.obmc_launch),
-                       ("itx_kernel", itx_torch.compose_residual),
-                       ("lf_frame_kernel", lf_torch.lf_launch),
-                       ("cdef_dirs_kernel", cdef_torch.dirs_launch),
-                       ("cdef_filter_kernel", cdef_torch.filter_launch),
-                       ("lr_frame_kernel", lr_torch.lr_launch),
-                       ("fg_frame_kernel", fg_torch.fg_launch),
-                       ("frame_hash_kernel", resident.frame_hash_device)):
-        out[f"launches.{kernel}"] = fn.launches
-    return out
+def count(name: str, n: int = 1) -> None:
+    """Adds n to the counter `name` (n = 0 makes it known to
+    `counters()`)."""
+    with _counts_lock:
+        _counts[name] += n
+
+
+def counters() -> Counter:
+    """A copy of the port's counters, a name that was never counted
+    reading 0: "pipe.frames" (frames that reached the pipe),
+    "pipe.fallbacks" (those declined to the C recon), "fg.templates"
+    (film grain template sets made), "strip.units" and "strip.levels"
+    (the strip kernel's units launched, and its steps: the levels summed
+    over the SBs, a unit each under the sequential schedule), and
+    "launches.<kernel>" for each hand kernel, named as the profiler names
+    it."""
+    with _counts_lock:
+        return Counter(_counts)

@@ -12,8 +12,6 @@ reads across them.
 tensors each launches its kernel of `csrc/cdef.cu` (built by nvcc at
 first use) once a frame, the filter for all its planes, or raises; on
 CPU tensors they take `find_dirs` and `filter_planes`.
-`dirs_launch.launches` and `filter_launch.launches` count the kernels'
-launches.
 """
 
 from __future__ import annotations
@@ -24,7 +22,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from easyav1_tpu_torch.video.av1.recon.lf_torch import on_card
+from easyav1_tpu_torch import _build
 
 # the tables below are the port's copies of cdef_jax.py:19-68
 CDEF_VERY_LARGE = 0x4000
@@ -225,18 +223,12 @@ def strengths(maps: Dict, planes: int):
             [maps["sec_y" if p == 0 else "sec_uv"] for p in range(planes)])
 
 
-def _lib():
-    from easyav1_tpu_torch import _build
-    lib = _build.load("cdef")
-    if lib.cdef_dirs_launch.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.cdef_dirs_launch.restype = ci
-        lib.cdef_dirs_launch.argtypes = [vp, vp, vp] + [ci] * 6 + [vp]
-        lib.cdef_frame_launch.restype = ci
-        lib.cdef_frame_launch.argtypes = [
-            ctypes.POINTER(vp), ctypes.POINTER(ci), vp, vp, vp, vp] + [
-            ci] * 8 + [vp]
-    return lib
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_DIRS = _build.Kernel("cdef", "cdef_dirs_launch", [_VP, _VP, _VP] + [_CI] * 6,
+                      "cdef_dirs_kernel")
+_FILTER = _build.Kernel("cdef", "cdef_frame_launch",
+                        [ctypes.POINTER(_VP), ctypes.POINTER(_CI), _VP, _VP,
+                         _VP, _VP] + [_CI] * 8, "cdef_filter_kernel")
 
 
 def dirs_launch(luma: torch.Tensor, uh: int, uw: int, coeff_shift: int,
@@ -250,24 +242,16 @@ def dirs_launch(luma: torch.Tensor, uh: int, uw: int, coeff_shift: int,
         raise ValueError(f"want int32 luma planes [..., ph, pw] and a unit "
                          f"grid, got {luma.dtype} {tuple(luma.shape)}, "
                          f"{uh}x{uw}")
-    if not on_card(luma, [luma]):
+    if not _build.on_card(luma, [luma]):
         return find_dirs(luma, uh, uw, coeff_shift, tabs)
     *lead, ph, pw = luma.shape
     dirs = torch.empty((*lead, uh, uw), dtype=torch.int32,
                        device=luma.device)
     var = torch.empty_like(dirs)
-    with torch.cuda.device(luma.device):
-        rc = _lib().cdef_dirs_launch(
-            luma.data_ptr(), dirs.data_ptr(), var.data_ptr(),
-            lead[0] if lead else 1, ph, pw, uh, uw, coeff_shift,
-            torch.cuda.current_stream(luma.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"cdef_dirs launch failed: cudaError {rc}")
-    dirs_launch.launches += 1
+    _DIRS.launch(luma.device, luma.data_ptr(), dirs.data_ptr(),
+                 var.data_ptr(), lead[0] if lead else 1, ph, pw, uh, uw,
+                 coeff_shift)
     return dirs, var
-
-
-dirs_launch.launches = 0
 
 
 def filter_launch(planes: List[torch.Tensor], dir_u: torch.Tensor,
@@ -306,7 +290,7 @@ def filter_launch(planes: List[torch.Tensor], dir_u: torch.Tensor,
                              or damp.numel() != (lead[0] if lead else 1)):
         raise ValueError(f"want one int32 damping a stream, got "
                          f"{damp.dtype} {tuple(damp.shape)}")
-    if not on_card(planes[0], planes + units
+    if not _build.on_card(planes[0], planes + units
                    + ([damp] if damp is not None else [])):
         return filter_planes(planes, dir_u, var_u, pri, sec, filt_u, ssx,
                              ssy, bd, damping, tabs)
@@ -314,20 +298,10 @@ def filter_launch(planes: List[torch.Tensor], dir_u: torch.Tensor,
     ptrs = [t.data_ptr() for p in range(n)
             for t in (planes[p], out[p], pri[p], sec[p])]
     dims = [d for x in planes for d in x.shape[-2:]]
-    dev = planes[0].device
-    with torch.cuda.device(dev):
-        rc = _lib().cdef_frame_launch(
-            (ctypes.c_void_p * len(ptrs))(*ptrs),
-            (ctypes.c_int * len(dims))(*dims), dir_u.data_ptr(),
-            var_u.data_ptr(), filt_u.data_ptr(),
-            None if damp is None else damp.data_ptr(),
-            0 if damp is not None else int(damping), n,
-            lead[0] if lead else 1, uh, uw, ssx, ssy, bd,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"cdef_filter launch failed: cudaError {rc}")
-    filter_launch.launches += 1
+    _FILTER.launch(planes[0].device, (_VP * len(ptrs))(*ptrs),
+                   (_CI * len(dims))(*dims), dir_u.data_ptr(),
+                   var_u.data_ptr(), filt_u.data_ptr(),
+                   None if damp is None else damp.data_ptr(),
+                   0 if damp is not None else int(damping), n,
+                   lead[0] if lead else 1, uh, uw, ssx, ssy, bd)
     return out
-
-
-filter_launch.launches = 0

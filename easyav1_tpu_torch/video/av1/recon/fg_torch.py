@@ -6,8 +6,8 @@ host once.  `FilmGrain.apply` is what the pipe calls: on CUDA tensors
 it launches `csrc/fg.cu` (built by nvcc at first use, and only then)
 once a frame for every plane that takes grain, through `fg_launch`, or
 raises; on CPU tensors it takes the plain version, `apply_plain`
-(`fg_plain.apply`).  `fg_launch.launches` counts the kernel's launches,
-`FilmGrain.generated` the template sets made.  Grain is an output-only
+(`fg_plain.apply`).  Each template set made counts as "fg.templates" in
+`trace.counters()`.  Grain is an output-only
 transform: `apply` returns new tensors and never writes the planes it is
 given, which are the reference frames.
 
@@ -24,9 +24,8 @@ from typing import List
 import numpy as np
 import torch
 
-from easyav1_tpu_torch import native
+from easyav1_tpu_torch import _build, native, trace
 from easyav1_tpu_torch.video.av1.recon import fg_plain
-from easyav1_tpu_torch.video.av1.recon.lf_torch import on_card
 
 
 class FilmGrain:
@@ -36,9 +35,6 @@ class FilmGrain:
     returns new, grained planes of the same types, equal to
     `fg_ref.FilmGrain.apply` and `fg_jax.DeviceFilmGrain.apply`."""
 
-    # template sets made, by every instance (trace counter "fg.templates")
-    generated = 0
-
     def __init__(self, fg, seq, bd: int, device):
         self.fg = fg
         self.bd = bd
@@ -47,7 +43,7 @@ class FilmGrain:
         self.mono = getattr(seq.color, "mono_chrome", False)
         self.templates = native.fg_templates(fg, bd, self.ssx, self.ssy,
                                              self.mono)
-        FilmGrain.generated += 1
+        trace.count("fg.templates")
         self.luts = fg_plain.scaling_luts(fg, bd)
         self._plain = self._table = None
         device = torch.device(device)
@@ -91,16 +87,10 @@ class FilmGrain:
                               self.mono, grain, lut, planes)
 
 
-def _lib():
-    from easyav1_tpu_torch import _build
-    lib = _build.load("fg")
-    fn = lib.fg_frame_launch
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(ci), ci,
-                       ctypes.POINTER(ci), vp, vp]
-    return lib
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_FG = _build.Kernel("fg", "fg_frame_launch",
+                    [ctypes.POINTER(_VP), ctypes.POINTER(_CI), _CI,
+                     ctypes.POINTER(_CI), _VP], "fg_frame_kernel")
 
 
 def launch_args(grain: FilmGrain, planes: List[torch.Tensor]):
@@ -148,7 +138,7 @@ def fg_launch(grain: FilmGrain, planes: List[torch.Tensor]
     grain, into new planes, or raise; CPU tensors take
     `grain.apply_plain`.  A plane that takes no grain is returned as it
     is; no input is written."""
-    if not on_card(planes[0], planes):
+    if not _build.on_card(planes[0], planes):
         return grain.apply_plain(planes)
     on, dims, params = launch_args(grain, planes)
     if not on:
@@ -159,17 +149,7 @@ def fg_launch(grain: FilmGrain, planes: List[torch.Tensor]
         if p in on:
             out[p] = torch.empty_like(x)
         ptrs += [x.data_ptr(), out[p].data_ptr() if p in on else 0]
-    table = grain.table(dev)
-    ci = ctypes.c_int
-    with torch.cuda.device(dev):
-        rc = _lib().fg_frame_launch(
-            (ctypes.c_void_p * len(ptrs))(*ptrs),
-            (ci * len(dims))(*dims), len(planes), (ci * len(params))(*params),
-            table.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fg_frame launch failed: cudaError {rc}")
-    fg_launch.launches += 1
+    _FG.launch(dev, (_VP * len(ptrs))(*ptrs), (_CI * len(dims))(*dims),
+               len(planes), (_CI * len(params))(*params),
+               grain.table(dev).data_ptr())
     return out
-
-
-fg_launch.launches = 0

@@ -29,8 +29,8 @@ and 10 bits (`round0`).
   one tile of a block can blend its above overlays, then its left ones,
   add the residual and store once.  `obmc_tables` groups the overlays by
   block.
-- `mc_launch.launches`, `obmc_launch.launches`: the kernels' launch
-  counts, over both sample types.
+- The launches of 6a and 6b count over both sample types, as
+  "launches.mc_kernel" and "launches.obmc_kernel" of `trace.counters()`.
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from easyav1_tpu_torch import convert, trace
+from easyav1_tpu_torch import _build, convert, trace
 from easyav1_tpu_torch.video.av1.recon.mc_plan import (
     NPR, NS, NW, P_MIDX, P_MODE, P_PRED0, P_PRED1, P_VALID, P_W0, P_W1, P_X,
     P_Y, S_FH, S_FV, S_IX, S_IY, S_NORES, S_SLOT, S_VALID, S_X, S_Y, W_ALPHA,
@@ -507,21 +507,13 @@ def obmc_tables(plan: Dict, pinned: bool = False) -> Dict:
 
 # ------------------------------------------------------------- wrappers
 
-LAUNCHES = ("inter_mc_launch", "obmc_launch", "inter_mc_launch16",
-            "obmc_launch16")
-
-
-def _lib():
-    from easyav1_tpu_torch import _build
-    lib = _build.load("inter_mc")
-    if lib.inter_mc_launch.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        frame = [vp] * 7         # _frame_args
-        for name in LAUNCHES:
-            fn = getattr(lib, name)
-            fn.restype = ci
-            fn.argtypes = [ci, *frame, vp, vp, vp, ci, vp]
-    return lib
+# kernels 6a and 6b, each its uint8 instantiation and its uint16 one
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_ARGS = [_CI, *[_VP] * 7, _VP, _VP, _VP, _CI]
+_MC = tuple(_build.Kernel("inter_mc", name, _ARGS, "mc_kernel")
+            for name in ("inter_mc_launch", "inter_mc_launch16"))
+_OBMC = tuple(_build.Kernel("inter_mc", name, _ARGS, "obmc_kernel")
+              for name in ("obmc_launch", "obmc_launch16"))
 
 
 def sample_dtype(bd: int) -> torch.dtype:
@@ -581,21 +573,18 @@ def upload(tabs: Dict, dev) -> Dict:
             "layout": tabs["layout"], "n_tiles": tabs["n_tiles"]}
 
 
-def _launch(name, planes, resid, refs, tabs, table, bd):
-    """Launches the kernel `name` (its uint16 instantiation above 8
-    bits); returns the cudaError_t."""
+def _launch(kernels, planes, resid, refs, tabs, table, bd):
+    """Launches `kernels`' instantiation for `bd` (uint8 at 8 bits,
+    uint16 above) on the planes' device; raises if the launch fails."""
     dev = planes[0].device
     buf = tabs["buf"]
     if buf.device != dev or buf.dtype != torch.int32 \
             or not buf.is_contiguous():
         raise ValueError(f"tables: want a contiguous int32 buffer on {dev}")
     args = _frame_args(planes, resid, refs, bd)
-    fn = getattr(_lib(), name + ("16" if bd > 8 else ""))
     layout = (ctypes.c_int * len(tabs["layout"]))(*tabs["layout"])
-    with torch.cuda.device(dev):
-        return fn(len(planes), *args, buf.data_ptr(), layout,
-                  convert.tables(dev)[table].data_ptr(), bd,
-                  torch.cuda.current_stream(dev).cuda_stream)
+    kernels[bd > 8].launch(dev, len(planes), *args, buf.data_ptr(), layout,
+                           convert.tables(dev)[table].data_ptr(), bd)
 
 
 def mc_launch(planes: List[torch.Tensor], resid: Sequence[torch.Tensor],
@@ -604,15 +593,8 @@ def mc_launch(planes: List[torch.Tensor], resid: Sequence[torch.Tensor],
     """Launch kernel 6a once on CUDA tensors, in place: `tabs` is
     `upload(mc_tables(plan), device)` with at least one work index,
     other arguments as `mc_units`.  Raises if the launch fails."""
-    rc = _launch("inter_mc_launch", planes, resid, refs, tabs,
-                 "warped_filter", bd)
-    if rc != 0:
-        raise RuntimeError(f"inter_mc launch failed: cudaError {rc}")
-    mc_launch.launches += 1
+    _launch(_MC, planes, resid, refs, tabs, "warped_filter", bd)
     return planes
-
-
-mc_launch.launches = 0
 
 
 def obmc_launch(planes: List[torch.Tensor], resid: Sequence[torch.Tensor],
@@ -621,23 +603,8 @@ def obmc_launch(planes: List[torch.Tensor], resid: Sequence[torch.Tensor],
     """Launch kernel 6b once on CUDA tensors, in place: `tabs` is
     `upload(obmc_tables(plan), device)` with at least one work index.
     Raises if the launch fails."""
-    rc = _launch("obmc_launch", planes, resid, refs, tabs, "obmc_masks",
-                 bd)
-    if rc != 0:
-        raise RuntimeError(f"obmc launch failed: cudaError {rc}")
-    obmc_launch.launches += 1
+    _launch(_OBMC, planes, resid, refs, tabs, "obmc_masks", bd)
     return planes
-
-
-obmc_launch.launches = 0
-
-
-def _on_card(planes) -> bool:
-    """False for CPU tensors, True for CUDA tensors; others raise."""
-    dev = planes[0].device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev.type == "cuda"
 
 
 def mc_units(planes: List[torch.Tensor], resid: Sequence[torch.Tensor],
@@ -648,7 +615,7 @@ def mc_units(planes: List[torch.Tensor], resid: Sequence[torch.Tensor],
     slots' planes in the plan's order (`sample_dtype(bd)`).  CPU tensors take
     `mc_units_plain`; CUDA tensors launch kernel 6a once (`mc_launch`,
     when the plan has units), or raise."""
-    if not _on_card(planes):
+    if not _build.on_card(planes[0]):
         return mc_units_plain(planes, resid, refs, plan, bd)
     tabs = mc_tables(plan, pinned=True)
     if tabs["n_tiles"] == 0:
@@ -662,7 +629,7 @@ def obmc(planes: List[torch.Tensor], resid: Sequence[torch.Tensor],
     """The OBMC of a frame, in place, arguments as `mc_units`.  CPU
     tensors take `obmc_plain`; CUDA tensors launch kernel 6b once
     (`obmc_launch`, when the plan has OBMC blocks), or raise."""
-    if not _on_card(planes):
+    if not _build.on_card(planes[0]):
         return obmc_plain(planes, resid, refs, plan, bd)
     if not plan["obmc_resid"]:
         if plan["obmc_above"] or plan["obmc_left"]:

@@ -32,7 +32,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from easyav1_tpu_torch import convert
+from easyav1_tpu_torch import _build, convert, trace
 from easyav1_tpu_torch import native as nat
 from easyav1_tpu_torch.video.av1.recon.records import (
     F_ACH, F_ACW, F_ACX, F_ACY, F_ALPHA, F_ANGLE, F_CF, F_CLS, F_DX, F_DY,
@@ -412,20 +412,10 @@ def strip_exec_plain(fields: torch.Tensor, resid: torch.Tensor,
 
 # -------------------------------------------------------------- wrapper
 
-# the C signature of intra_strip_frame_launch
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
-ARGTYPES = [_CI, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-            _CI, _CI, _CI, _CI, _VP, _VP, _VP, _CI, _VP]
-
-
-def _lib():
-    from easyav1_tpu_torch import _build
-    lib = _build.load("intra_strip")
-    fn = lib.intra_strip_frame_launch
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = ARGTYPES
-    return lib
+_STRIP = _build.Kernel("intra_strip", "intra_strip_frame_launch",
+                       [_CI] + [_VP] * 11 + [_CI] * 4 + [_VP] * 3 + [_CI],
+                       "intra_wavefront_kernel")
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -476,19 +466,17 @@ def strip_exec_frame(fields: Sequence[torch.Tensor],
     Chroma CfL reads the finished luma when the frame is 4:2:0.  CPU
     tensors take `strip_exec_frame_plain`, which is sequential and does
     not read the schedule; CUDA tensors launch the kernel once, or raise.
-    Each launch adds its units to `strip_exec_frame.units` and its steps
-    to `.levels`: the levels summed over the SBs, a unit each under the
-    sequential schedule."""
+    Each launch counts its units as "strip.units" and its steps as
+    "strip.levels" (`trace.counters()`): the levels summed over the SBs,
+    a unit each under the sequential schedule."""
     n_pl = len(fields)
     if not 1 <= n_pl == len(resid) == len(dims) <= 3:
         raise ValueError("one to three planes, each with fields, residual "
                          "and dims")
     dims = [tuple(int(v) for v in d) for d in dims]
     dev = resid[0].device
-    if dev.type == "cpu":
+    if not _build.on_card(resid[0]):
         return strip_exec_frame_plain(fields, resid, dims, bd, base, masks)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
     sbh, sbw, spans, order = schedule
     grid = sb_grid(dims, sbh, sbw)
     rows, cols = grid[0][:2]
@@ -511,35 +499,25 @@ def strip_exec_frame(fields: Sequence[torch.Tensor],
     tabs = convert.tables(dev)
     ptrs = ctypes.c_void_p * n_pl
     ints = ctypes.c_int * n_pl
-    with torch.cuda.device(dev):
-        rc = _lib().intra_strip_frame_launch(
-            n_pl, ptrs(*(f.data_ptr() for f in fields)),
-            ptrs(*(r.data_ptr() for r in resid)),
-            ptrs(*(o.data_ptr() for o in outs)),
-            ptrs(*(spans[p].data_ptr() for p in range(n_pl))),
-            order.data_ptr(),
-            ints(*(d[0] for d in dims)), ints(*(d[1] for d in dims)),
-            ints(*(g[2] for g in grid)), ints(*(g[3] for g in grid)),
-            ptrs(*(m.data_ptr() if m is not None else 0 for m in masks)),
-            ints(*(m.shape[1] if m is not None else 0 for m in masks)),
-            rows, cols, int(cfl),
-            # the scan's units need a sequential schedule or masks
-            int(rows * cols == 1 or any(m is not None for m in masks)),
-            counters.data_ptr(),
-            tabs["sm_weights"].data_ptr(),
-            tabs["filter_intra_taps"].data_ptr(), bd,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"intra_strip launch failed: cudaError {rc}")
-    strip_exec_frame.launches += 1
+    _STRIP.launch(
+        dev, n_pl, ptrs(*(f.data_ptr() for f in fields)),
+        ptrs(*(r.data_ptr() for r in resid)),
+        ptrs(*(o.data_ptr() for o in outs)),
+        ptrs(*(spans[p].data_ptr() for p in range(n_pl))),
+        order.data_ptr(),
+        ints(*(d[0] for d in dims)), ints(*(d[1] for d in dims)),
+        ints(*(g[2] for g in grid)), ints(*(g[3] for g in grid)),
+        ptrs(*(m.data_ptr() if m is not None else 0 for m in masks)),
+        ints(*(m.shape[1] if m is not None else 0 for m in masks)),
+        rows, cols, int(cfl),
+        # the scan's units need a sequential schedule or masks
+        int(rows * cols == 1 or any(m is not None for m in masks)),
+        counters.data_ptr(),
+        tabs["sm_weights"].data_ptr(),
+        tabs["filter_intra_taps"].data_ptr(), bd)
     units = sum(f.shape[0] for f in fields)
-    strip_exec_frame.units += units
+    trace.count("strip.units", units)
     # the order holds each SB's units and the end of each of its levels
-    strip_exec_frame.levels += order.numel() - units if order.numel() \
-        else units
+    trace.count("strip.levels",
+                order.numel() - units if order.numel() else units)
     return outs
-
-
-strip_exec_frame.launches = 0
-strip_exec_frame.units = 0
-strip_exec_frame.levels = 0

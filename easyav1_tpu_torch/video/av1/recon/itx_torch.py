@@ -38,6 +38,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from easyav1_tpu_torch import _build
 from easyav1_tpu_torch.video.av1 import tables as T
 from easyav1_tpu_torch.video.av1.itx_ref import (_ROW_SHIFT, _TX_1D,
                                                  transform_1d)
@@ -241,15 +242,10 @@ def compose_residual_packed_plain(txs, coeffs, dims: Sequence[Tuple[int,
     return compose_residual_plain(dense_txs, dense, dims, bd, device)
 
 
-def _lib():
-    from easyav1_tpu_torch import _build
-    lib = _build.load("itx")
-    fn = lib.itx_compose_launch
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        fn.argtypes = [cl, vp, vp, cl, ci, vp, vp, vp, ci, vp, vp]
-    return lib
+_VP, _CI, _CL = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_ITX = _build.Kernel("itx", "itx_compose_launch",
+                     [_CL, _VP, _VP, _CL, _CI, _VP, _VP, _VP, _CI, _VP],
+                     "itx_kernel")
 
 
 def _class_offsets(class_offsets, n: int) -> np.ndarray:
@@ -286,10 +282,8 @@ def compose_residual(txs: torch.Tensor, coeffs: torch.Tensor,
         raise ValueError(f"{len(dims)} planes at {bd} bits")
     n = txs.shape[0]
     off = _class_offsets(class_offsets, n)
-    if dev.type == "cpu":
+    if not _build.on_card(txs):
         return compose_residual_packed_plain(txs, coeffs, dims, bd, dev)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
     if txs.data_ptr() % 16 or coeffs.data_ptr() % 16:
         raise ValueError("txs and coeffs must start on 16-byte boundaries")
     # one fill for all planes, each plane a contiguous view of it
@@ -300,19 +294,11 @@ def compose_residual(txs: torch.Tensor, coeffs: torch.Tensor,
         return planes
     k = len(dims)
     ints = ctypes.c_int * k
-    with torch.cuda.device(dev):
-        rc = _lib().itx_compose_launch(
-            n, txs.data_ptr(), coeffs.data_ptr(), coeffs.shape[0], k,
-            (ctypes.c_void_p * k)(*(p.data_ptr() for p in planes)),
-            ints(*(h for h, _ in dims)), ints(*(w for _, w in dims)), bd,
-            off.ctypes.data, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"itx_compose launch failed: cudaError {rc}")
-    compose_residual.launches += 1
+    _ITX.launch(dev, n, txs.data_ptr(), coeffs.data_ptr(), coeffs.shape[0], k,
+                (_VP * k)(*(p.data_ptr() for p in planes)),
+                ints(*(h for h, _ in dims)), ints(*(w for _, w in dims)), bd,
+                off.ctypes.data)
     return planes
-
-
-compose_residual.launches = 0
 
 
 def narrow_residual(planes: List[torch.Tensor]):

@@ -17,8 +17,7 @@ jit does with its cell maps, `postfilter_fused.py:64-70`).
 `lf_launch` is what the postfilter calls: every plane of a frame, both
 directions, on CUDA tensors in one launch of the hand-written kernel
 `csrc/loopfilter.cu` (built by nvcc at first use), or raises; on CPU
-tensors it takes `lf_frame_plain`.  `lf_launch.launches` counts the
-kernel's launches.
+tensors it takes `lf_frame_plain`.
 """
 
 from __future__ import annotations
@@ -27,6 +26,8 @@ import ctypes
 from typing import Dict, List, Optional
 
 import torch
+
+from easyav1_tpu_torch import _build
 
 PAD = 8
 
@@ -215,30 +216,10 @@ def lf_frame_plain(planes: List[torch.Tensor], maps: List[Optional[Dict]],
     return out
 
 
-def on_card(t: torch.Tensor, tensors) -> bool:
-    """The LF and CDEF wrappers' dispatch: False for a CPU tensor `t`
-    (the plain version runs); True for a CUDA one, with `tensors` all
-    contiguous on its device (the kernel launches); others raise."""
-    dev = t.device
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    if any(x.device != dev or not x.is_contiguous() for x in tensors):
-        raise ValueError(f"want contiguous tensors on {dev}")
-    return True
-
-
-def _lib():
-    from easyav1_tpu_torch import _build
-    lib = _build.load("loopfilter")
-    fn = lib.lf_frame_launch
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        ci = ctypes.c_int
-        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
-                       ctypes.POINTER(ci), ci, ci, ci, ctypes.c_void_p]
-    return lib
+_LF = _build.Kernel("loopfilter", "lf_frame_launch",
+                    [ctypes.POINTER(ctypes.c_void_p),
+                     ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                     ctypes.c_int, ctypes.c_int], "lf_frame_kernel")
 
 
 def _check(planes, maps):
@@ -294,7 +275,7 @@ def lf_launch(planes: List[torch.Tensor], maps: List[Optional[Dict]],
     tensors = [t for p in on for t in
                [planes[p]] + [maps[p][k] for k in ("sv", "lv", "sh", "lh",
                                                    "lut")]]
-    if not on_card(planes[on[0]], tensors):
+    if not _build.on_card(planes[on[0]], tensors):
         return lf_frame_plain(planes, maps, bd)
     out = list(planes)
     ptrs, dims = [], []
@@ -305,17 +286,7 @@ def lf_launch(planes: List[torch.Tensor], maps: List[Optional[Dict]],
             m[k].data_ptr() for k in ("sv", "lv", "sh", "lh", "lut")]
         dims += [*planes[p].shape[-2:], *shifts[p]]
     lead = planes[on[0]].shape[:-2]
-    dev = planes[on[0]].device
-    with torch.cuda.device(dev):
-        rc = _lib().lf_frame_launch(
-            (ctypes.c_void_p * len(ptrs))(*ptrs),
-            (ctypes.c_int * len(dims))(*dims), len(on),
-            lead[0] if lead else 1, bd,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"lf_frame launch failed: cudaError {rc}")
-    lf_launch.launches += 1
+    _LF.launch(planes[on[0]].device, (ctypes.c_void_p * len(ptrs))(*ptrs),
+               (ctypes.c_int * len(dims))(*dims), len(on),
+               lead[0] if lead else 1, bd)
     return out
-
-
-lf_launch.launches = 0

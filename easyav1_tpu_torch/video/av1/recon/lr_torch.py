@@ -8,9 +8,9 @@ box filter of `RESTORE_SGRPROJ`, spec 7.17.3): the counterpart of
 `LoopRestoration.apply` is what the pipe calls: on CUDA tensors it
 launches `csrc/lr.cu` (built by nvcc at first use) once a frame for
 every plane that restores, through `lr_launch`, or raises; on CPU
-tensors it takes the plain version, `apply_plain`.  `lr_launch.launches`
-counts the kernel's launches.  The kernel reads one small table a frame,
-one entry a restoration unit (`LoopRestoration.unit_table`).
+tensors it takes the plain version, `apply_plain`.  The kernel reads one
+small table a frame, one entry a restoration unit
+(`LoopRestoration.unit_table`).
 
 The plain version: stripes of 64 luma rows never read each other's
 output, so a plane is one batch of stripe windows [ns, sh + 6, W + 6];
@@ -36,9 +36,8 @@ from typing import List
 import numpy as np
 import torch
 
-from easyav1_tpu_torch import convert, trace
+from easyav1_tpu_torch import _build, convert, trace
 from easyav1_tpu_torch.video.av1 import constants as C
-from easyav1_tpu_torch.video.av1.recon.lf_torch import on_card
 
 # Copies of easyav1_tpu/video/av1/lr_ref.py::SGR_RADII, SGR_S and _DIV_LUT
 # (spec Sgr_Params and Div_Lut).
@@ -412,16 +411,10 @@ class LoopRestoration:
         return out
 
 
-def _lib():
-    from easyav1_tpu_torch import _build
-    lib = _build.load("lr")
-    fn = lib.lr_frame_launch
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(ci), ci, vp, ci,
-                       vp]
-    return lib
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_LR = _build.Kernel("lr", "lr_frame_launch",
+                    [ctypes.POINTER(_VP), ctypes.POINTER(_CI), _CI, _VP, _CI],
+                    "lr_frame_kernel")
 
 
 def launch_dims(dims, planes, deblocked) -> List[int]:
@@ -458,7 +451,7 @@ def lr_launch(lr: LoopRestoration, planes: List[torch.Tensor],
         return list(planes)
     ints = launch_dims(dims, planes, deblocked)
     on = [d[0] for d in dims]
-    if not on_card(planes[on[0]], [t for p in on
+    if not _build.on_card(planes[on[0]], [t for p in on
                                    for t in (planes[p], deblocked[p])]):
         return lr.apply_plain(planes, deblocked)
     host = torch.from_numpy(table).pin_memory()
@@ -475,21 +468,11 @@ def frame_launch(planes: List[torch.Tensor], deblocked: List[torch.Tensor],
     the planes' device (the rest as they are).  Raises if the launch
     fails."""
     out = list(planes)
-    dev = planes[on[0]].device
     ptrs = []
     for p in on:
         out[p] = torch.empty_like(planes[p])
         ptrs += [planes[p].data_ptr(), deblocked[p].data_ptr(),
                  out[p].data_ptr()]
-    with torch.cuda.device(dev):
-        rc = _lib().lr_frame_launch(
-            (ctypes.c_void_p * len(ptrs))(*ptrs),
-            (ctypes.c_int * len(ints))(*ints), len(on), table.data_ptr(),
-            bd, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"lr_frame launch failed: cudaError {rc}")
-    lr_launch.launches += 1
+    _LR.launch(planes[on[0]].device, (_VP * len(ptrs))(*ptrs),
+               (_CI * len(ints))(*ints), len(on), table.data_ptr(), bd)
     return out
-
-
-lr_launch.launches = 0

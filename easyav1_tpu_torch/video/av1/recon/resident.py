@@ -22,6 +22,8 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from easyav1_tpu_torch import _build
+
 _FNV = 16777619
 _RK = 2654435761
 _CK = 40503
@@ -45,15 +47,10 @@ def frame_hash_plain(planes: Sequence[torch.Tensor]) -> torch.Tensor:
     return h
 
 
-def _lib():
-    from easyav1_tpu_torch import _build
-    lib = _build.load("frame_hash")
-    fn = lib.frame_hash_launch
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        vp = ctypes.c_void_p
-        fn.argtypes = [ctypes.c_int, vp, vp, vp, vp, ctypes.c_int, vp, vp]
-    return lib
+_VP = ctypes.c_void_p
+_HASH = _build.Kernel("frame_hash", "frame_hash_launch",
+                      [ctypes.c_int, _VP, _VP, _VP, _VP, ctypes.c_int, _VP],
+                      "frame_hash_kernel")
 
 
 def frame_hash_device(planes: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -66,10 +63,8 @@ def frame_hash_device(planes: Sequence[torch.Tensor]) -> torch.Tensor:
     dev = planes[0].device
     if any(p.device != dev for p in planes):
         raise ValueError("the planes lie on different devices")
-    if dev.type == "cpu":
+    if not _build.on_card(planes[0]):
         return frame_hash_plain(planes)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
     if not 1 <= len(planes) <= 3:
         raise ValueError("one to three planes")
     dt = planes[0].dtype
@@ -84,20 +79,12 @@ def frame_hash_device(planes: Sequence[torch.Tensor]) -> torch.Tensor:
     n = len(planes)
     words = torch.zeros(8, dtype=torch.int32, device=dev)
     ints = ctypes.c_int * n
-    with torch.cuda.device(dev):
-        rc = _lib().frame_hash_launch(
-            n, (ctypes.c_void_p * n)(*(p.data_ptr() for p in planes)),
-            ints(*(p.shape[0] for p in planes)),
-            ints(*(p.shape[1] for p in planes)),
-            ints(*(p.stride(0) for p in planes)), planes[0].element_size(),
-            words.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"frame_hash launch failed: cudaError {rc}")
-    frame_hash_device.launches += 1
+    _HASH.launch(dev, n, (_VP * n)(*(p.data_ptr() for p in planes)),
+                 ints(*(p.shape[0] for p in planes)),
+                 ints(*(p.shape[1] for p in planes)),
+                 ints(*(p.stride(0) for p in planes)),
+                 planes[0].element_size(), words.data_ptr())
     return words[4]
-
-
-frame_hash_device.launches = 0
 
 
 def hash_value(h) -> int:

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from easyav1_tpu_torch import trace
 from easyav1_tpu_torch.unit_programs import random_fg_case, stream_grain
 from easyav1_tpu_torch.video.av1.recon import fg_torch
 
@@ -32,9 +33,10 @@ def _hold(device, fg, seq, planes):
     grain = fg_torch.FilmGrain(fg, seq, seq.color.bitdepth, device)
     tp = [torch.from_numpy(p).to(device) for p in planes]
     kept = [t.clone() for t in tp]
-    before = fg_torch.fg_launch.launches
+    before = trace.counters()
     got = grain.apply(tp)
-    assert fg_torch.fg_launch.launches == before + 1
+    assert trace.counters()["launches.fg_frame_kernel"] \
+        == before["launches.fg_frame_kernel"] + 1
     want = grain.apply_plain(tp)
     torch.cuda.synchronize()
     for p in range(len(tp)):

@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from easyav1_tpu_torch import native
+from easyav1_tpu_torch import _build, native, trace
 from easyav1_tpu_torch.unit_programs import random_fg_case, stream_grain
 from easyav1_tpu_torch.video.av1.recon import fg_plain, fg_torch
 
@@ -153,11 +153,12 @@ def test_kernel_source_on_the_stream_parameters(host_lib, which):
 def test_the_wrapper_takes_the_plain_version_on_the_cpu(monkeypatch):
     fg, seq, planes = random_fg_case(30, 50, 34)
     grain = _grain(fg, seq)
-    monkeypatch.setattr(fg_torch, "_lib", lambda: pytest.fail("built"))
+    monkeypatch.setattr(_build, "load", lambda name: pytest.fail("built"))
     tin = [torch.from_numpy(p) for p in planes]
-    before = fg_torch.fg_launch.launches
+    before = trace.counters()
     got = grain.apply(tin)
-    assert fg_torch.fg_launch.launches == before
+    assert trace.counters()["launches.fg_frame_kernel"] \
+        == before["launches.fg_frame_kernel"]
     for g, w in zip(got, grain.apply_plain(tin)):
         assert torch.equal(g, w)
 
@@ -239,8 +240,8 @@ def test_c_templates_equal_python_in_the_corners(case):
 
 def test_film_grain_counts_the_template_sets_it_makes():
     fg, seq, _ = random_fg_case(60, 8, 8)
-    before = fg_torch.FilmGrain.generated
+    before = trace.counters()
     grain = _grain(fg, seq)
-    assert fg_torch.FilmGrain.generated == before + 1
+    assert trace.counters()["fg.templates"] == before["fg.templates"] + 1
     assert all(np.array_equal(a, b) for a, b in zip(
         grain.templates, fg_plain.generate_grain(fg, 8, 1, 1, False)))

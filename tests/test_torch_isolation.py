@@ -4,6 +4,8 @@
   jax or anything of the JAX package (`easyav1_tpu`), by an `ast` scan
   of every source file (test_torch_pipe.py::test_port_never_imports_jax
   checks `sys.modules` after a decode);
+- the tracer (`trace.py`) imports nothing of the port, and the kernels'
+  loader (`_build.py`) only the tracer;
 - no C or CUDA source of the port includes a file outside
   `easyav1_tpu_torch/`, and the C ABI shim imports only the port's
   package (test_torch_capi.py runs it with poisoned `easyav1_tpu` and
@@ -96,6 +98,27 @@ def test_shim_imports_only_the_port():
         re.findall(r'call_ll1?\(h, "(\w+)"', src))
     assert len(called) > 30
     assert not [n for n in called if not callable(getattr(bridge, n, None))]
+
+
+def _port_imports(path):
+    """The port's modules a file imports, anywhere in it, by dotted
+    name."""
+    for node in ast.walk(ast.parse((REPO / path).read_text(), path)):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names
+                        if a.name.split(".")[0] == "easyav1_tpu_torch")
+        elif isinstance(node, ast.ImportFrom) and node.module and \
+                node.module.split(".")[0] == "easyav1_tpu_torch":
+            yield from (f"{node.module}.{a.name}" for a in node.names)
+
+
+def test_the_kernel_seam_imports_nothing_above_it():
+    """The tracer imports no module of the port, which every layer
+    imports, and the kernels' loader (`_build`) only the tracer: the
+    counters are pushed by the sites that count, not pulled from them."""
+    assert list(_port_imports("easyav1_tpu_torch/trace.py")) == []
+    assert list(_port_imports("easyav1_tpu_torch/_build.py")) == [
+        "easyav1_tpu_torch.trace"]
 
 
 def test_scan_sees_the_port():

@@ -733,10 +733,11 @@ def test_kernel_vs_plain(seed, dims, bd, cuda_device):
     ptxs, pco, off = pack_coeff_rows(prog["txs"], prog["coeffs"])
     txs = torch.from_numpy(ptxs).to(cuda_device)
     co = torch.from_numpy(pco).to(cuda_device)
-    before = itx_torch.compose_residual.launches
+    before = trace.counters()
     got = itx_torch.compose_residual(txs, co, off, dims, bd)
     torch.cuda.synchronize()
-    assert itx_torch.compose_residual.launches == before + 1
+    assert trace.counters()["launches.itx_kernel"] \
+        == before["launches.itx_kernel"] + 1
     _assert_planes_equal(got, itx_torch.compose_residual_packed_plain(
         txs, co, dims, bd, cuda_device))
 
@@ -766,12 +767,12 @@ def test_device_composer_streams_on_the_card(name, cuda_device,
     session, no fallback, one launch a frame that has transforms."""
     path = os.path.join(SMOKE, f"{name}.webm")
     easyav1_tpu_torch.stats.update(frames=0, fallbacks=0)
-    launches = itx_torch.compose_residual.launches
+    launches = trace.counters()["launches.itx_kernel"]
     calls = _spy_compose(monkeypatch)
     got = _hashes(lambda: easyav1_tpu_torch.EasyAV1(
         path, device="cuda", host_residual=False))
     assert got == _hashes(lambda: api.native_session(path))
     assert easyav1_tpu_torch.stats["fallbacks"] == 0
     assert len(calls) == easyav1_tpu_torch.stats["frames"]
-    assert itx_torch.compose_residual.launches - launches \
+    assert trace.counters()["launches.itx_kernel"] - launches \
         == sum(n > 0 for n in calls)

@@ -42,7 +42,7 @@ import pytest
 import torch
 
 from easyav1_tpu.video.av1.recon import cdef_jax, lf_jax
-from easyav1_tpu_torch import convert
+from easyav1_tpu_torch import convert, trace
 from easyav1_tpu_torch.unit_programs import random_postfilter_case
 from easyav1_tpu_torch.video.av1.recon import cdef_torch, lf_torch
 from easyav1_tpu_torch.video.av1.recon.postfilter import (postfilter_apply,
@@ -234,7 +234,8 @@ def test_filter_plane_vs_jax(bd, ss, p):
 # ------------------------------------------------------------ wrappers
 
 def _wrapper_calls(case):
-    """(name, wrapper, call) of the three wrappers on a case's planes."""
+    """(name, launch counter, call, plain call) of the three wrappers on a
+    case's planes."""
     planes = [_t(p) for p in case["planes"]]
     maps = upload_maps(case["maps"], CPU)
     cd = maps["cdef"]
@@ -242,17 +243,17 @@ def _wrapper_calls(case):
     dirs, var = cdef_torch.find_dirs(planes[0], uh, uw, cd["cs"], TABS)
     pri, sec = cdef_torch.strengths(cd, 3)
     return [
-        ("deblock", lf_torch.lf_launch,
+        ("deblock", "launches.lf_frame_kernel",
          lambda: lf_torch.lf_launch(planes, maps["lf"], 8),
          lambda: [lf_torch.pass_body(
              lf_torch.pass_body(x, *_rows(m["sv"], m["lv"], m["lut"],
                                           x.shape[0]), 8).T,
              *_rows(m["sh"], m["lh"], m["lut"], x.shape[1]), 8).T
              for x, m in zip(planes, maps["lf"])]),
-        ("cdef_dirs", cdef_torch.dirs_launch,
+        ("cdef_dirs", "launches.cdef_dirs_kernel",
          lambda: cdef_torch.dirs_launch(planes[0], uh, uw, 0, TABS),
          lambda: cdef_torch.find_dirs(planes[0], uh, uw, 0, TABS)),
-        ("cdef_filter", cdef_torch.filter_launch,
+        ("cdef_filter", "launches.cdef_filter_kernel",
          lambda: cdef_torch.filter_launch(
              planes, dirs, var, pri, sec, cd["filt"], 1, 1, 8,
              cd["damping"], TABS),
@@ -270,14 +271,14 @@ def _rows(size, level, lut, lines):
 @pytest.mark.parametrize("k", range(3), ids=["deblock", "cdef_dirs",
                                              "cdef_filter"])
 def test_wrapper_on_cpu_takes_the_plain_version(k):
-    _name, fn, call, plain = _wrapper_calls(
+    _name, counter, call, plain = _wrapper_calls(
         random_postfilter_case(1, _dims((37, 53), (1, 1)), 8))[k]
-    fn.launches = 0
+    before = trace.counters()[counter]
     got, want = call(), plain()
     for a, b in zip(got if isinstance(got, (tuple, list)) else (got,),
                     want if isinstance(want, (tuple, list)) else (want,)):
         _eq(a, b, "wrapper against plain")
-    assert fn.launches == 0
+    assert trace.counters()[counter] == before
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():

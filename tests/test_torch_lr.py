@@ -31,6 +31,7 @@ import torch
 from easyav1_tpu.video.av1 import constants as C
 from easyav1_tpu.video.av1 import lr_ref
 from easyav1_tpu.video.av1.recon.lr_jax import DeviceLoopRestoration
+from easyav1_tpu_torch import trace
 from easyav1_tpu_torch.unit_programs import random_lr_case
 from easyav1_tpu_torch.video.av1.recon import lr_torch
 
@@ -420,13 +421,14 @@ def test_unit_table_expands_to_stripe_params(name):
 
 def test_lr_launch_on_the_cpu_takes_the_plain_version():
     lr, planes, debl = _case(**HOST_CASES["mixed-8bit"])
-    before = lr_torch.lr_launch.launches
+    before = trace.counters()
     got = lr_torch.lr_launch(lr, planes, debl)
     want = lr.apply_plain(planes, debl)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert all(torch.equal(a, b) for a, b in zip(lr.apply(planes, debl),
                                                  want))
-    assert lr_torch.lr_launch.launches == before
+    assert trace.counters()["launches.lr_frame_kernel"] \
+        == before["launches.lr_frame_kernel"]
 
 
 def _bad(what, planes, debl):

@@ -10,6 +10,7 @@ no JAX, so that it runs on a machine without it:
 import pytest
 import torch
 
+from easyav1_tpu_torch import trace
 from easyav1_tpu_torch.unit_programs import random_lr_case
 from easyav1_tpu_torch.video.av1.recon import lr_torch
 
@@ -30,9 +31,10 @@ def test_kernel_on_the_card(cuda_device, width, height, bd):
     lr = lr_torch.LoopRestoration(hdr, seq, plan, bd)
     tp = [torch.from_numpy(p).to(cuda_device) for p in planes]
     td = [torch.from_numpy(d).to(cuda_device) for d in debl]
-    before = lr_torch.lr_launch.launches
+    before = trace.counters()
     got = lr.apply(tp, td)
-    assert lr_torch.lr_launch.launches == before + 1
+    assert trace.counters()["launches.lr_frame_kernel"] \
+        == before["launches.lr_frame_kernel"] + 1
     want = lr.apply_plain(tp, td)
     torch.cuda.synchronize()
     for p in range(3):

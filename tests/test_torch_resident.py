@@ -13,7 +13,7 @@ import torch
 
 import easyav1_tpu_torch
 from easyav1_tpu.video.av1.recon import resident as ref_resident
-from easyav1_tpu_torch import api
+from easyav1_tpu_torch import api, trace
 from easyav1_tpu_torch.native import pipe
 from easyav1_tpu_torch.video.av1.recon import resident
 
@@ -53,9 +53,10 @@ def test_plain_hash_equals_reference_and_api(k):
     assert got.dtype == torch.int64 and got.dim() == 0
     assert resident.hash_value(got) == want
     # a CPU tensor takes the plain version, and no kernel is launched
-    before = resident.frame_hash_device.launches
+    before = trace.counters()
     assert resident.hash_value(resident.frame_hash_device(tp)) == want
-    assert resident.frame_hash_device.launches == before
+    assert trace.counters()["launches.frame_hash_kernel"] \
+        == before["launches.frame_hash_kernel"]
 
 
 def test_plain_hash_equals_the_jax_device_hash():
@@ -232,10 +233,11 @@ def test_kernel_vs_plain_and_api(k, cuda_device):
     planes = _planes(k, HASH_DIMS[k])
     want = api.frame_hash(planes)
     tp = [torch.from_numpy(p).to(cuda_device) for p in planes]
-    before = resident.frame_hash_device.launches
+    before = trace.counters()
     got = resident.frame_hash_device(tp)
     torch.cuda.synchronize()
-    assert resident.frame_hash_device.launches == before + 1
+    assert trace.counters()["launches.frame_hash_kernel"] \
+        == before["launches.frame_hash_kernel"] + 1
     assert resident.hash_value(got) == want
     assert resident.hash_value(resident.frame_hash_plain(tp)) == want
     # views: odd start, pitched rows

@@ -9,11 +9,14 @@
 - the bytes the pipe copies, on the spans that copy them;
 - a declined frame carries its reason;
 - film grain: its "fg_templates" span inside "grain", made or cached;
-- `trace.counters()` against `pipe.stats`, the launchers' counters, the
-  strip kernel's units and levels, and the film grain template sets
-  made.
+- `trace.counters()` against `pipe.stats`, each kernel declaration's
+  launches (through a fake library: a launch that succeeds counts, one
+  that fails raises and does not), the strip kernel's units and levels,
+  and the film grain template sets made.
 """
 
+import contextlib
+import ctypes
 import os
 import threading
 from collections import defaultdict
@@ -23,7 +26,7 @@ import pytest
 import torch
 
 import easyav1_tpu_torch
-from easyav1_tpu_torch import trace
+from easyav1_tpu_torch import _build, trace
 from easyav1_tpu_torch.native import pipe
 from easyav1_tpu_torch.unit_programs import random_fg_case
 from easyav1_tpu_torch.video.av1.backend import AV1Backend
@@ -193,24 +196,27 @@ def test_counters_follow_pipe_stats():
     _play(os.path.join(SMOKE, "superres_lr_88x64.webm"), pipe="postfilter")
     _play(INTER_MODES)
     after = trace.counters()
-    assert after["pipe.frames"] == pipe.stats["frames"] == 11
-    assert after["pipe.fallbacks"] == pipe.stats["fallbacks"] == 3
+    assert after["pipe.frames"] - before["pipe.frames"] \
+        == pipe.stats["frames"] == 11
+    assert after["pipe.fallbacks"] - before["pipe.fallbacks"] \
+        == pipe.stats["fallbacks"] == 3
     # the CPU runs the kernels' plain versions: no launch is counted
     assert {k: after[k] - before[k] for k in after
             if k.startswith("launches.")} == dict.fromkeys(
                 (k for k in after if k.startswith("launches.")), 0)
 
 
-LAUNCHERS = {"intra_wavefront_kernel": intra_strip.strip_exec_frame,
-             "mc_kernel": inter_mc.mc_launch,
-             "obmc_kernel": inter_mc.obmc_launch,
-             "itx_kernel": itx_torch.compose_residual,
-             "lf_frame_kernel": lf_torch.lf_launch,
-             "cdef_dirs_kernel": cdef_torch.dirs_launch,
-             "cdef_filter_kernel": cdef_torch.filter_launch,
-             "lr_frame_kernel": lr_torch.lr_launch,
-             "fg_frame_kernel": fg_torch.fg_launch,
-             "frame_hash_kernel": resident.frame_hash_device}
+# each hand kernel's declarations, by its name in the profiler
+LAUNCHERS = {"intra_wavefront_kernel": (intra_strip._STRIP,),
+             "mc_kernel": inter_mc._MC,
+             "obmc_kernel": inter_mc._OBMC,
+             "itx_kernel": (itx_torch._ITX,),
+             "lf_frame_kernel": (lf_torch._LF,),
+             "cdef_dirs_kernel": (cdef_torch._DIRS,),
+             "cdef_filter_kernel": (cdef_torch._FILTER,),
+             "lr_frame_kernel": (lr_torch._LR,),
+             "fg_frame_kernel": (fg_torch._FG,),
+             "frame_hash_kernel": (resident._HASH,)}
 
 
 def test_grain_templates_have_a_span_inside_grain_and_a_counter():
@@ -234,14 +240,14 @@ def test_grain_templates_of_the_same_parameters_are_cached():
     fg, seq, planes = random_fg_case(3, 40, 24)
     be = SimpleNamespace(_dev_fg=None, device="cpu")
     tin = [torch.from_numpy(p) for p in planes]
-    before = fg_torch.FilmGrain.generated
+    before = trace.counters()
     trace.start()
     try:
         first = AV1Backend._film_grain_device(be, fg, seq, tin)
         again = AV1Backend._film_grain_device(be, fg, seq, tin)
     finally:
         spans = trace.stop()
-    assert fg_torch.FilmGrain.generated == before + 1
+    assert trace.counters()["fg.templates"] == before["fg.templates"] + 1
     assert [sp.attrs["cached"] for sp in spans
             if sp.name == "fg_templates"] == [False, True]
     assert all(torch.equal(a, b) for a, b in zip(first, again))
@@ -249,11 +255,34 @@ def test_grain_templates_of_the_same_parameters_are_cached():
 
 @pytest.mark.parametrize("kernel", sorted(LAUNCHERS))
 def test_counters_read_each_launcher(kernel, monkeypatch):
-    fn = LAUNCHERS[kernel]
-    monkeypatch.setattr(fn, "launches", fn.launches)
+    """Three launches of the kernel's declarations (all its
+    instantiations) on a fake library count 3 under its name and nothing
+    else; a fourth, which fails, raises and counts nothing.  Each launch
+    passes its arguments, then the device's current stream."""
+    calls = []
+
+    def fn(*args):
+        calls.append(args)
+        return 0 if len(calls) <= 3 else 700    # cudaErrorIllegalAddress
+
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: SimpleNamespace(cuda_stream=42))
+    decls = LAUNCHERS[kernel]
+    for d in decls:
+        monkeypatch.setattr(d, "_fn", None)
+        monkeypatch.setitem(_build._libs, d.lib, SimpleNamespace(
+            **{x.symbol: fn for x in decls}))
     before = trace.counters()
-    fn.launches += 3
+    for k in range(3):
+        decls[k % len(decls)].launch(torch.device("cuda", 0), k, "arg")
+    with pytest.raises(RuntimeError,
+                       match=f"^{decls[0].symbol}: cudaError 700$"):
+        decls[0].launch(torch.device("cuda", 0), 3, "arg")
     after = trace.counters()
+    assert calls == [(k, "arg", 42) for k in range(4)]
+    assert fn.restype is ctypes.c_int and fn.argtypes[-1] is ctypes.c_void_p
     assert {k for k in after if k.startswith("launches.")} == {
         f"launches.{k}" for k in LAUNCHERS}
     assert {k: after[k] - before[k] for k in after if after[k] != before[k]} \
@@ -261,20 +290,17 @@ def test_counters_read_each_launcher(kernel, monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["units", "levels"])
-def test_counters_read_the_strip_steps(name, monkeypatch):
-    """`strip.units` and `strip.levels` read the strip kernel's wrapper,
-    which counts them at each launch (none on the CPU, whose plain
-    version runs in decode order)."""
-    fn = intra_strip.strip_exec_frame
-    monkeypatch.setattr(fn, name, getattr(fn, name))
+def test_counters_read_the_strip_steps(name):
+    """`strip.units` and `strip.levels` are what the strip kernel's
+    wrapper counts at each launch (none on the CPU, whose plain version
+    runs in decode order)."""
     before = trace.counters()
     _play(INTER_MODES)
-    setattr(fn, name, getattr(fn, name) + 5)
+    trace.count(f"strip.{name}", 5)
     after = trace.counters()
-    assert {k: after[k] - before[k] for k in after
-            if k.startswith("strip.")} == {
-                "strip.units": 5 * (name == "units"),
-                "strip.levels": 5 * (name == "levels")}
+    assert {k: after[k] - before[k] for k in ("strip.units", "strip.levels")
+            } == {"strip.units": 5 * (name == "units"),
+                  "strip.levels": 5 * (name == "levels")}
 
 
 def test_spans_nest_and_take_the_parents_frame():

@@ -1,14 +1,14 @@
 """Run the MC kernels' CUDA source on the CPU, against their plain
 versions.
 
-    python3 tools/torch_mc_host_run.py [-DMC_ASYNC=0 ...]
+    python3 tools/torch_mc_host_run.py
 
 A machine without a CUDA compiler cannot build
 easyav1_tpu_torch/csrc/inter_mc.cu, but g++ can: with
 tools/cuda_host_shim/cuda_runtime.h in place of the CUDA runtime, every
 CUDA thread runs as an OS thread and the barriers are real, so the
 kernels' index arithmetic, staging, passes and blends run as written.
-Builds the source (with any -D design switches given) into
+Builds the source into
 easyav1_tpu_torch/_build/inter_mc_host.so, runs kernels 6a and 6b
 through `inter_mc.mc_launch` and `obmc_launch` on CPU tensors for
 seeded random MC programs of even and odd sizes, at 8 bits (the uint8
@@ -18,6 +18,7 @@ about what nvcc accepts, and nothing about speed.
 """
 
 import ctypes
+import functools
 import os
 import subprocess
 import sys
@@ -38,29 +39,32 @@ PROGRAMS = [(12, 100, 76, 8), (14, 100, 76, 8), (21, 416, 240, 8),
             (7, 201, 133, 12)]
 
 
-def build(flags):
+def build():
     os.makedirs(_build.BUILD, exist_ok=True)
     out = os.path.join(_build.BUILD, "inter_mc_host.so")
     subprocess.run(
         ["g++", "-std=c++17", "-O1", "-shared", "-fPIC", "-pthread",
          "-Wno-unknown-pragmas", "-I",
-         os.path.join(REPO, "tools", "cuda_host_shim"), *flags, "-x", "c++",
+         os.path.join(REPO, "tools", "cuda_host_shim"), "-x", "c++",
          os.path.join(_build.CSRC, "inter_mc.cu"), "-o", out], check=True)
     lib = ctypes.CDLL(out)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    for name in inter_mc.LAUNCHES:
-        getattr(lib, name).restype = ci
-        getattr(lib, name).argtypes = [ci, *[vp] * 7, vp, vp, vp, ci, vp]
+    for k in inter_mc._MC + inter_mc._OBMC:
+        fn = getattr(lib, k.symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = k.argtypes
     return lib
 
 
-def host_launch(name, planes, resid, refs, tabs, table, bd):
-    """`inter_mc._launch` without a device or a stream."""
+def host_launch(lib, kernels, planes, resid, refs, tabs, table, bd):
+    """`inter_mc._launch` on the host build, without a device or a
+    stream."""
     layout = (ctypes.c_int * len(tabs["layout"]))(*tabs["layout"])
-    fn = getattr(inter_mc._lib(), name + ("16" if bd > 8 else ""))
-    return fn(len(planes), *inter_mc._frame_args(planes, resid, refs, bd),
-              tabs["buf"].data_ptr(), layout,
-              convert.tables(planes[0].device)[table].data_ptr(), bd, None)
+    rc = getattr(lib, kernels[bd > 8].symbol)(
+        len(planes), *inter_mc._frame_args(planes, resid, refs, bd),
+        tabs["buf"].data_ptr(), layout,
+        convert.tables(planes[0].device)[table].data_ptr(), bd, None)
+    if rc != 0:
+        raise RuntimeError(f"{kernels[bd > 8].symbol} returned {rc}")
 
 
 def run(prog, kernels, bd):
@@ -85,9 +89,7 @@ def run(prog, kernels, bd):
 
 
 def main():
-    lib = build(sys.argv[1:])
-    inter_mc._lib = lambda: lib
-    inter_mc._launch = host_launch
+    inter_mc._launch = functools.partial(host_launch, build())
     worst = 0
     for seed, width, height, bd in PROGRAMS:
         prog = random_mc_program(seed, width, height, bd=bd)

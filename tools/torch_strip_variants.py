@@ -61,7 +61,6 @@ def run_variant(name):
 
     import chip_smoke as S
     from easyav1_tpu_torch import _build
-    from easyav1_tpu_torch.video.av1.recon import intra_strip
 
     src = open(SOURCE).read()
     for old, new in PATCHES[name]:
@@ -75,13 +74,9 @@ def run_variant(name):
                         out + ".so", out + ".cu"], capture_output=True,
                        text=True)
     S.check(r.returncode == 0, f"nvcc {name}: {r.stderr}")
-    lib = ctypes.CDLL(out + ".so")
-    fn = lib.intra_strip_frame_launch
-    # set by hand: loading the shipped build too would put two CUDA
-    # runtimes in one process
-    fn.argtypes = intra_strip.ARGTYPES
-    fn.restype = ctypes.c_int
-    intra_strip._lib = lambda: lib
+    # the library the strip kernel's launches load, in place of the
+    # shipped build: both in one process would put two CUDA runtimes in it
+    _build._libs["intra_strip"] = ctypes.CDLL(out + ".so")
     dev = torch.device("cuda", 0)
     for tag, path, plain in FRAMES:
         fr = S.Frame.key_frame(getattr(S, path), dev)
