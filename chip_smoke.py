@@ -78,21 +78,22 @@ Then:
    all 8 frames of tests/data/bench/bench_av1_10bit_3840x2160_8.webm
    and the ten hbd_*.webm of tests/data/smoke/ (STREAMS below); every
    frame's hash equal to the port's native C session's, no fallback,
-   and the launches as expected: one strip launch a frame, one of 6a an
-   inter frame, one of 6b a frame with OBMC blocks, and the LF + CDEF
-   kernels as each frame's header asks (`pf_launches`: one deblocking
-   launch when a plane deblocks, one direction search and one CDEF
-   filter when CDEF is on), and one loop-restoration launch a frame
+   and the launches as expected: one strip launch a frame that has pred
+   units (none for a frame without: 2 of the 1080p inter stream's 60),
+   one of 6a an inter frame, one of 6b a frame with OBMC blocks, and the
+   LF + CDEF kernels as each frame's header asks (`pf_launches`: one
+   deblocking launch when a plane deblocks, one direction search and one
+   CDEF filter when CDEF is on), and one loop-restoration launch a frame
    whose restoration restores a plane (`lr_restores`).  Then
-   `decode_resident`
-   on every stream (at most RESIDENT_FRAMES frames of each): its device
-   hashes equal `api.frame_hash` of the same frames pulled through the
-   API, no plane is downloaded, and the hash kernel launches once a
-   frame; then the main path again with the device residual composer
-   (`host_residual=False`) on the 1080p intra and inter streams, the 4K
-   10-bit stream, inter_modes_96x96, hbd_12p and hbd_444x10, each with
-   its own counts: hash-equal to the native C session, no fallback, one
-   device composer launch a frame that has transforms; then the C ABI
+   `decode_resident` on every stream (at most RESIDENT_FRAMES frames of
+   each): its device hashes equal `api.frame_hash` of the same frames
+   pulled through the API, no plane is downloaded, and the hash kernel
+   launches once a frame; then the main path again with the device
+   residual composer (`host_residual=False`) on the 1080p intra and
+   inter streams, the 4K 10-bit stream, inter_modes_96x96, hbd_12p and
+   hbd_444x10, each with its own counts: hash-equal to the native C
+   session, no fallback, one device composer launch a frame that has
+   transforms; then the C ABI
    (`easyav1_tpu_torch/capi`, `check_capi`): its library loaded into
    this process decodes every frame of the three bench streams and of
    inter_modes_96x96 through `easyav1_decode_next` and
@@ -1283,56 +1284,63 @@ def lr_timings(inputs):
     return out
 
 
-# name, path, frames shown, and the launches expected: the strip kernel
-# once a decoded frame, 6a once an inter frame, 6b once a frame that has
-# OBMC blocks
-STREAMS = [("1080p intra", INTRA_1080, 30, (30, 0, 0)),
-           ("1080p inter", INTER_1080, 60, (60, 59, 0)),
-           ("4K", KEY_4K, 24, (24, 23, 0)),
-           ("inter modes 96x96", MODES, 8, (8, 7, 7)),
+# name, path, frames shown, and (frames decoded, then the launches
+# expected): the strip kernel once a decoded frame that has pred units
+# (a frame without any launches nothing; the counts are the streams'
+# own, from their units), 6a once an inter frame, 6b once a frame that
+# has OBMC blocks
+STREAMS = [("1080p intra", INTRA_1080, 30, (30, 30, 0, 0)),
+           ("1080p inter", INTER_1080, 60, (60, 2, 59, 0)),
+           ("4K", KEY_4K, 24, (24, 9, 23, 0)),
+           ("inter modes 96x96", MODES, 8, (8, 8, 7, 7)),
            # loop restoration on every frame (Wiener and SGR),
            # deblocking on the inter frames, film grain on every frame
-           ("1080p LR + grain", LR_GRAIN_1080, 8, (8, 7, 0)),
+           ("1080p LR + grain", LR_GRAIN_1080, 8, (8, 8, 7, 0)),
            ("LR mixed units 320x200",
-            os.path.join(SMOKE, "lreal_mix_e8bf32ba.webm"), 1, (1, 0, 0)),
+            os.path.join(SMOKE, "lreal_mix_e8bf32ba.webm"), 1, (1, 1, 0, 0)),
            ("LR inter 160x128",
-            os.path.join(SMOKE, "lreal_interlr_863022fc.webm"), 4, (4, 3, 0)),
+            os.path.join(SMOKE, "lreal_interlr_863022fc.webm"), 4,
+            (4, 4, 3, 0)),
            ("film grain 160x128",
-            os.path.join(SMOKE, "fgreal_7cdd830f.webm"), 2, (2, 0, 0)),
+            os.path.join(SMOKE, "fgreal_7cdd830f.webm"), 2, (2, 2, 0, 0)),
            ("superres + LR 88x64",
-            os.path.join(SMOKE, "superres_lr_88x64.webm"), 3, (3, 0, 0)),
+            os.path.join(SMOKE, "superres_lr_88x64.webm"), 3, (3, 3, 0, 0)),
            ("superres + LR 1920x128",
-            os.path.join(SMOKE, "superres_lr_1920x128.webm"), 3, (3, 0, 0)),
+            os.path.join(SMOKE, "superres_lr_1920x128.webm"), 3, (3, 3, 0, 0)),
            # libaom streams whose pairs carry wedge and diffwtd masks (22
            # diffwtd blocks and 1 wedge; 4 and 2, and one hidden frame)
            ("masked compound 320x192",
-            os.path.join(SMOKE, "comp_masked_320x192.webm"), 10, (10, 9, 0)),
+            os.path.join(SMOKE, "comp_masked_320x192.webm"), 10,
+            (10, 1, 9, 0)),
            ("wedge compound 320x192",
-            os.path.join(SMOKE, "comp_wedge_320x192.webm"), 12, (13, 12, 0))]
+            os.path.join(SMOKE, "comp_wedge_320x192.webm"), 12,
+            (13, 12, 12, 0))]
 # the 10- and 12-bit streams: uint16 frames, the kernels' uint16
 # instantiations
-HBD_STREAMS = [("4K 10-bit", HBD_4K, 8, (8, 7, 0)),
+HBD_STREAMS = [("4K 10-bit", HBD_4K, 8, (8, 8, 7, 0)),
                ("10-bit intra 96x96",
-                os.path.join(SMOKE, "hbd_10i.webm"), 4, (4, 0, 0)),
+                os.path.join(SMOKE, "hbd_10i.webm"), 4, (4, 4, 0, 0)),
                ("10-bit inter 96x96",
-                os.path.join(SMOKE, "hbd_10p.webm"), 4, (4, 3, 0)),
+                os.path.join(SMOKE, "hbd_10p.webm"), 4, (4, 4, 3, 0)),
                ("10-bit deblocking + CDEF 128x96",
-                os.path.join(SMOKE, "hbd_10pf.webm"), 4, (4, 3, 0)),
+                os.path.join(SMOKE, "hbd_10pf.webm"), 4, (4, 4, 3, 0)),
                ("12-bit intra 96x96",
-                os.path.join(SMOKE, "hbd_12i.webm"), 4, (4, 0, 0)),
+                os.path.join(SMOKE, "hbd_12i.webm"), 4, (4, 4, 0, 0)),
                ("12-bit inter 96x96",
-                os.path.join(SMOKE, "hbd_12p.webm"), 8, (8, 7, 0)),
+                os.path.join(SMOKE, "hbd_12p.webm"), 8, (8, 8, 7, 0)),
                ("10-bit 4:4:4 96x96",
-                os.path.join(SMOKE, "hbd_444x10.webm"), 4, (4, 3, 0)),
+                os.path.join(SMOKE, "hbd_444x10.webm"), 4, (4, 4, 3, 0)),
                ("10-bit film grain 160x128",
-                os.path.join(SMOKE, "hbd_10fg.webm"), 3, (3, 2, 0)),
+                os.path.join(SMOKE, "hbd_10fg.webm"), 3, (3, 3, 2, 0)),
                ("12-bit film grain 160x128",
-                os.path.join(SMOKE, "hbd_12fg.webm"), 3, (3, 2, 0)),
+                os.path.join(SMOKE, "hbd_12fg.webm"), 3, (3, 3, 2, 0)),
                # compound, OBMC and warps at 10 and 12 bits
                ("10-bit inter modes 96x96",
-                os.path.join(SMOKE, "hbd_modes10_96x96.webm"), 8, (8, 7, 6)),
+                os.path.join(SMOKE, "hbd_modes10_96x96.webm"), 8,
+                (8, 8, 7, 6)),
                ("12-bit inter modes 96x96",
-                os.path.join(SMOKE, "hbd_modes12_96x96.webm"), 8, (8, 7, 6))]
+                os.path.join(SMOKE, "hbd_modes12_96x96.webm"), 8,
+                (8, 8, 7, 6))]
 # the resident decode runs at most this many frames of a stream
 RESIDENT_FRAMES = 12
 # the main path again with the device residual composer
@@ -1494,11 +1502,12 @@ def main_path(streams, host_residual=True):
         # launches count the decoded frames
         itx_want = 0 if host_residual else composer.with_transforms
         check(stats["frames"] == want[0] == pf.frames
-              and recon_counts(c) == want + (0, itx_want)
+              and recon_counts(c) == want[1:] + (0, itx_want)
               and pf_counts(c) == pf.want and c["lr"] == pf.lr_want
               and len(composer.calls) == (0 if host_residual
                                           else stats["frames"]),
-              f"{name}{mode}: launches {c}, want {want} (strip, 6a, 6b), "
+              f"{name}{mode}: launches {c}, want {want} (frames, strip, "
+              f"6a, 6b), "
               f"{itx_want} device composer launches, LF + CDEF "
               f"{pf.want} and {pf.lr_want} LR over {pf.frames} frames; "
               f"composer calls {composer.calls}")
@@ -2603,12 +2612,13 @@ def check_capi():
               f"{sum(a != b for a, b in zip(got, native_h))} differ")
         itx_want = composer.with_transforms if device_composer else 0
         check(stats == {"frames": want[0], "fallbacks": 0}
-              and recon_counts(c) == want + (0, itx_want)
+              and recon_counts(c) == want[1:] + (0, itx_want)
               and pf_counts(c) == pf.want and pf.frames == want[0]
               and c["lr"] == pf.lr_want
               and (itx_want > 0 or not device_composer),
               f"C ABI {name}{mode}: stats {stats}, launches {c}, want "
-              f"{want} (strip, 6a, 6b), {itx_want} composer launches, "
+              f"{want} (frames, strip, 6a, 6b), {itx_want} composer "
+              f"launches, "
               f"LF + CDEF {pf.want} and {pf.lr_want} LR")
         if not device_composer:
             fps[name] = n / wall

@@ -53,9 +53,16 @@
 // min(c + 1, C - 1) and, for chroma with CfL, until luma row r has
 // finished SB c; then __syncthreads().  After the SB: __syncthreads(),
 // and thread 0 issues __threadfence() and a release store of the row's
-// count of finished SBs.  An intrabc source may lie anywhere above its
-// unit, which this order does not cover: intrabc frames take the
-// sequential schedule, one SB a plane.  The scan's units (intrabc,
+// count of finished SBs, the SBs without units up to the row's next SB
+// with units among them.  An SB without units (an inter frame's SBs are
+// mostly such) is passed over: nothing staged, no wait, no barrier; it
+// counts as finished once the SB with units before it has.  That is
+// exact: it writes no pixel, and its pixels are the base, final before
+// the launch, so whoever waits for it reads what it would have read
+// after it.  A frame without units is not launched at all
+// (intra_strip.strip_exec_frame).  An intrabc source may lie anywhere
+// above its unit, which this order does not cover: intrabc frames take
+// the sequential schedule, one SB a plane.  The scan's units (intrabc,
 // interintra) are compiled into a second instantiation of the kernel,
 // which the host picks for frames that may have them (a sequential
 // schedule, or interintra masks).  L1 is not coherent across SMs, so
@@ -82,12 +89,12 @@
 // slower: the waiting warps took the working ones' issue slots
 // (tools/torch_strip_variants.py, PERF.md).  The SB's first RECS
 // records, its level order and its residual tile are staged in shared
-// memory by asynchronous copies (cp.async) issued for SB c + 1 while SB
-// c computes, and its further records are prefetched into L2; 4-byte
-// copies, because records (120 bytes) and residual rows (2 pw bytes) are
-// not 16-byte aligned in general, as TMA bulk copies need.  The TPU
-// kernel's 0/1 selection matmuls and lane rolls are plain indexed loads
-// here, and DC uses integer division.
+// memory by asynchronous copies (cp.async) issued for the row's next SB
+// with units while SB c computes, and its further records are prefetched
+// into L2; 4-byte copies, because records (120 bytes) and residual rows
+// (2 pw bytes) are not 16-byte aligned in general, as TMA bulk copies
+// need.  The TPU kernel's 0/1 selection matmuls and lane rolls are plain
+// indexed loads here, and DC uses integer division.
 
 #include <cstdint>
 #include <cuda_pipeline.h>
@@ -597,6 +604,22 @@ __device__ __forceinline__ Cells unit_cells(const int* f, const Plane& P,
           ((2u << (c1 - c0)) - 1u) << c0};
 }
 
+// The first SB of row r from c on that holds units (its span's end is
+// past its begin), or a.cols: each warp reads 32 spans at once.  Every
+// thread of the CTA calls it and gets the same answer, so the CTA takes
+// one branch.
+__device__ __forceinline__ int next_occupied(const Args& a, const Plane& P,
+                                             int r, int c) {
+  const int32_t* sp = P.spans + 4 * r * a.cols;
+  for (; c < a.cols; c += 32) {
+    const int k = c + (threadIdx.x & 31);
+    const unsigned held = __ballot_sync(
+        0xffffffffu, k < a.cols && __ldg(sp + 4 * k + 1) != __ldg(sp + 4 * k));
+    if (held) return c + __ffs(held) - 1;
+  }
+  return a.cols;
+}
+
 // Issue the asynchronous copies of SB (r, c)'s first RECS records, of
 // its level order and, when res is not null, of its residual tile
 // (pitch P.sbw), as one committed group; prefetch its further records
@@ -663,18 +686,23 @@ __global__ void __launch_bounds__(THREADS) intra_wavefront_kernel(Args a) {
     // is read from global memory
     const bool tiled = P.sbh * P.sbw <= RES_MAX;
     const bool mapped = P.sbh <= SB_MAX && P.sbw <= SB_MAX;
-    stage(a, P, r, 0, recs, tiled ? ress : nullptr, ords);
-    for (int c = 0; c < a.cols; ++c) {
+    // the row's first SB with units: the SBs before it are done as they
+    // stand; it is staged now, each next one while the one before it
+    // computes
+    int c = next_occupied(a, P, r, 0);
+    if (t == 0 && c > 0) st_release(row_done, c);
+    if (c < a.cols) stage(a, P, r, c, recs, tiled ? ress : nullptr, ords);
+    for (int b = 0; c < a.cols; b ^= 1) {
       if (t == 0) {
         if (r > 0) wait_at_least(row_done - 1, min(c + 2, a.cols));
         if (a.cfl && pl > 0) wait_at_least(done + r, c + 1);
       }
       __pipeline_wait_prior(0);
       __syncthreads();
-      // SB c + 1's copies run while SB c computes
-      const int b = c & 1, nb = b ^ 1;
-      if (c + 1 < a.cols)
-        stage(a, P, r, c + 1, recs + nb * RECS * NF,
+      // the next SB with units: its copies run while SB c computes
+      const int cn = next_occupied(a, P, r, c + 1), nb = b ^ 1;
+      if (cn < a.cols)
+        stage(a, P, r, cn, recs + nb * RECS * NF,
               tiled ? ress + nb * RES_MAX : nullptr, ords + nb * ORD_MAX);
       const int* rec = recs + b * RECS * NF;
       const int16_t* res = tiled ? ress + b * RES_MAX : nullptr;
@@ -735,8 +763,10 @@ __global__ void __launch_bounds__(THREADS) intra_wavefront_kernel(Args a) {
       __syncthreads();
       if (t == 0) {
         __threadfence();
-        st_release(row_done, c + 1);
+        st_release(row_done, cn);      // SB c and the SBs after it without
+                                       // units
       }
+      c = cn;
     }
   }
 }

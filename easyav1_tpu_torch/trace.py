@@ -36,9 +36,10 @@ The spans, by layer:
 `count(name, n)` adds to one of the port's counters, at the site that
 does what it counts, and `counters()` reads them all: frames and
 fallbacks of the pipe, each hand kernel's launches, the strip kernel's
-units and levels, and the film grain template sets made.  Counters are
-never reset: a reader takes the difference of two readings.  This module
-imports nothing of the port, which every layer of it imports.
+units and levels, the SBs it passes over and the frames it skips, and
+the film grain template sets made.  Counters are never reset: a reader
+takes the difference of two readings.  This module imports nothing of
+the port, which every layer of it imports.
 """
 
 from __future__ import annotations
@@ -267,8 +268,11 @@ def counters() -> Counter:
     "pipe.fallbacks" (those declined to the C recon), "fg.templates"
     (film grain template sets made), "strip.units" and "strip.levels"
     (the strip kernel's units launched, and its steps: the levels summed
-    over the SBs, a unit each under the sequential schedule), and
-    "launches.<kernel>" for each hand kernel, named as the profiler names
-    it."""
+    over the SBs, a unit each under the sequential schedule),
+    "strip.empty_sbs" (the (plane, SB) pairs without units of the
+    schedules made for frames that have units: the SBs the kernel passes
+    over), "strip.skipped" (frames without units, whose strip launch was
+    skipped), and "launches.<kernel>" for each hand kernel, named as the
+    profiler names it."""
     with _counts_lock:
         return Counter(_counts)

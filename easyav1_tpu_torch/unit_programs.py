@@ -207,22 +207,26 @@ def random_interintra_program(seed: int, mi_rows: int = MI_ROWS,
 # ------------------------------------------------- superblock programs
 
 def random_sb_program(seed: int, mi_rows: int = 37, mi_cols: int = 45,
-                      bd: int = 8, interintra: bool = False) -> Dict:
+                      bd: int = 8, interintra: bool = False, sb: int = 64,
+                      occupied=None) -> Dict:
     """A seeded 4:2:0 frame as a decoder lays it out, for the strip
     kernel's superblock schedule (`intra_strip.sb_schedule`): each plane
-    a random partition of its 64x64 luma (32x32 chroma) SB grid
-    (`_blocks`) in decode order, SB by SB, each block a unit of a random
-    class (DC, V, H, zones 1-3 with edge filter, upsample and corner
-    filter, the Smooths, Paeth, chroma CfL on its own block, filter-
-    intra up to 32x32, palette-zero) or, one in eight, an inter block
+    a random partition of its sb x sb luma (sb / 2 chroma) SB grid, sb 64
+    or 128 (`_blocks`, blocks of 64x64 at most), in decode order, SB by
+    SB, each block a unit of a random class (DC, V, H, zones 1-3 with
+    edge filter, upsample and corner filter, the Smooths, Paeth, chroma
+    CfL on its own block, filter-intra up to 32x32, palette-zero) or,
+    one in eight, an inter block
     with no unit, whose pixels keep the base.  A unit reads only pixels
     decoded before it: above-right and below-left are available where
     every pixel of them in the plane is.  The default size leaves the
     last SBs partial and the chroma width 2 mod 4.  interintra: DC, V, H
     and Smooth units of 8..32 pixels (chroma: of 8..32 luma pixels) carry
-    a blend pack, as `random_interintra_program`'s.  {"units" [N, 24]
-    bridge layout, "dims", "resid" int16 per plane, "base" int32 per
-    plane}."""
+    a blend pack, as `random_interintra_program`'s.  occupied: None, or
+    for each plane the set of (row, column) of the SBs that hold units;
+    every block of another SB is an inter block, as on a sparse inter
+    frame.  {"units" [N, 24] bridge layout, "dims", "resid" int16 per
+    plane, "base" int32 per plane}."""
     from easyav1_tpu_torch.video.av1 import constants as C
     from easyav1_tpu_torch.video.av1.wedge import wedge_allowed
 
@@ -231,11 +235,13 @@ def random_sb_program(seed: int, mi_rows: int = 37, mi_cols: int = 45,
     dims = [(ah, aw), (ah >> 1, aw >> 1), (ah >> 1, aw >> 1)]
     units = []
     for plane, (ph, pw) in enumerate(dims):
-        sb = 32 if plane else 64
+        sbp = sb >> int(plane > 0)
         done = np.zeros((ph, pw), bool)
-        for x, y, w, h in _blocks(ph, pw, sb, rng):
+        for x, y, w, h in _blocks(ph, pw, sbp, rng, 64):
             inside = x + w <= pw and y + h <= ph
-            if rng.random() < 0.125:
+            if occupied is not None \
+                    and (y // sbp, x // sbp) not in occupied[plane] \
+                    or rng.random() < 0.125:
                 done[y:y + h, x:x + w] = True
                 continue
             ha, hl = int(y > 0), int(x > 0)
@@ -283,17 +289,18 @@ def random_sb_program(seed: int, mi_rows: int = 37, mi_cols: int = 45,
     lim = 50 << (bd - 8)
     resid = [rng.integers(-lim, lim + 1, d).astype(np.int16) for d in dims]
     base = [rng.integers(0, 1 << bd, d).astype(np.int32) for d in dims]
-    return {"units": np.array(units, np.int32), "dims": dims,
-            "resid": resid, "base": base}
+    return {"units": np.array(units, np.int32).reshape(-1, 24),
+            "dims": dims, "resid": resid, "base": base}
 
 
 # ----------------------------------------------------------- MC programs
 
-def _blocks(ph: int, pw: int, sb: int, rng) -> List[tuple]:
+def _blocks(ph: int, pw: int, sb: int, rng, most: int = 128
+            ) -> List[tuple]:
     """(x, y, w, h) of a random partition of the SB grid over a plane:
     each SB split recursively (quad, halves, quarters) down to 4 pixels,
-    blocks of every size from 4 to sb; the last SBs overhang the
-    plane."""
+    blocks of every size from 4 to sb, none wider or taller than most;
+    the last SBs overhang the plane."""
     out = []
 
     def split(x, y, w, h):
@@ -304,7 +311,7 @@ def _blocks(ph: int, pw: int, sb: int, rng) -> List[tuple]:
                                  ("vert", w >= 8 and h <= 2 * w),
                                  ("h4", h >= 16 and w == h),
                                  ("v4", w >= 16 and w == h)) if ok]
-        if not kinds or rng.random() < 0.4:
+        if not kinds or max(w, h) <= most and rng.random() < 0.4:
             out.append((x, y, w, h))
             return
         k = kinds[int(rng.integers(0, len(kinds)))]

@@ -17,11 +17,13 @@ per-plane stack (the unit's `F_RES`, 1-based; 0 for none).
   units in level order (C, `av1_strip_levels`): a unit's level is one
   more than the highest of the units of its SB whose pixels it reads.
   Intrabc frames take the sequential one: a copy's source may lie
-  anywhere above.
+  anywhere above.  Each counts its SBs without units, which the kernel
+  passes over, as "strip.empty_sbs".
 - `strip_exec_frame`: the wrapper.  For CPU tensors it runs the plain
   version on each plane, luma first; for CUDA tensors it launches
-  `csrc/intra_strip.cu` once for all planes, an SB wavefront with the
-  units of a level at once inside each SB, or raises.
+  `csrc/intra_strip.cu` once for all planes, an SB wavefront over the
+  SBs that hold units with the units of a level at once inside each SB,
+  or raises; a frame without units launches nothing ("strip.skipped").
 """
 
 from __future__ import annotations
@@ -129,13 +131,23 @@ def _levels(fields: Sequence[np.ndarray], dims, grid, spans: np.ndarray
     return order[:used], at
 
 
+def _count_empty(fields: Sequence[np.ndarray], spans: np.ndarray) -> None:
+    """Counts a schedule's (plane, SB) pairs that hold no unit, which the
+    kernel passes over, as "strip.empty_sbs"; none for a frame without
+    units, which is not launched."""
+    if any(f.shape[0] for f in fields):
+        trace.count("strip.empty_sbs",
+                    int(np.count_nonzero(spans[:, :, 0] == spans[:, :, 1])))
+
+
 def sb_schedule(fields: Sequence[np.ndarray], dims, sb: int) -> Schedule:
     """Each plane's units grouped by the SB that holds their top-left
     pixel, each SB's in level order; sb is 64 or 128 luma pixels.  Raises
     ValueError unless each SB's units are one contiguous run of the
     plane's records (tile columns split SB rows, so a row's SBs need not
     be contiguous with each other) and each unit lies inside its SB, and
-    on intrabc units, whose source the wavefront does not order."""
+    on intrabc units, whose source the wavefront does not order.  Counts
+    the SBs without units (`_count_empty`)."""
     if any(np.any(f[:, F_CLS] == K_IBC) for f in fields):
         raise ValueError("intrabc units need the sequential schedule")
     grid = sb_grid(dims, sb, sb)
@@ -159,15 +171,18 @@ def sb_schedule(fields: Sequence[np.ndarray], dims, sb: int) -> Schedule:
                              "order")
         spans[p, run_keys, 0] = start
         spans[p, run_keys, 1] = np.r_[start[1:], key.size]
+    _count_empty(fields, spans)
     order, spans[:, :, 2:] = _levels(fields, dims, grid, spans[:, :, :2])
     return sb, sb, spans, order
 
 
 def sequential_schedule(fields: Sequence[np.ndarray], dims) -> Schedule:
-    """One SB covering each whole plane: every unit in record order."""
-    spans = np.array([[[0, f.shape[0], 0, 0]] for f in fields], np.int32)
-    return (dims[0][0], dims[0][1], spans.reshape(len(fields), 1, 4),
-            np.zeros(0, np.int32))
+    """One SB covering each whole plane: every unit in record order.
+    Counts the planes without units (`_count_empty`)."""
+    spans = np.array([[[0, f.shape[0], 0, 0]] for f in fields],
+                     np.int32).reshape(len(fields), 1, 4)
+    _count_empty(fields, spans)
+    return dims[0][0], dims[0][1], spans, np.zeros(0, np.int32)
 
 
 def schedule_to(schedule: Schedule, device) -> Tuple:
@@ -465,7 +480,9 @@ def strip_exec_frame(fields: Sequence[torch.Tensor],
     masks[p]: the plane's interintra stack [n, s, s] int32, or None.
     Chroma CfL reads the finished luma when the frame is 4:2:0.  CPU
     tensors take `strip_exec_frame_plain`, which is sequential and does
-    not read the schedule; CUDA tensors launch the kernel once, or raise.
+    not read the schedule; CUDA tensors launch the kernel once, or raise,
+    unless no plane has a unit: then the planes are handed back as they
+    are, with nothing launched, and the frame counts as "strip.skipped".
     Each launch counts its units as "strip.units" and its steps as
     "strip.levels" (`trace.counters()`): the levels summed over the SBs,
     a unit each under the sequential schedule."""
@@ -494,6 +511,10 @@ def strip_exec_frame(fields: Sequence[torch.Tensor],
     _check(order, "order", torch.int32, (order.numel(),), dev)
     outs = list(base) if base is not None else [
         torch.zeros(d, dtype=torch.int32, device=dev) for d in dims]
+    units = sum(f.shape[0] for f in fields)
+    if not units:                 # nothing to reconstruct: no launch
+        trace.count("strip.skipped")
+        return outs
     cfl = _is_420(dims)
     counters = torch.zeros(1 + n_pl * rows, dtype=torch.int32, device=dev)
     tabs = convert.tables(dev)
@@ -515,7 +536,6 @@ def strip_exec_frame(fields: Sequence[torch.Tensor],
         counters.data_ptr(),
         tabs["sm_weights"].data_ptr(),
         tabs["filter_intra_taps"].data_ptr(), bd)
-    units = sum(f.shape[0] for f in fields)
     trace.count("strip.units", units)
     # the order holds each SB's units and the end of each of its levels
     trace.count("strip.levels",

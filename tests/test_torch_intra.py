@@ -17,7 +17,10 @@
   order is a topological order of decode order, the plain executor
   gives the same planes in it (also on seeded SB programs with inter
   blocks and interintra units), and intrabc frames keep decode order;
-- the CUDA kernel against its plain version (needs the card).
+- sparse inter frames (units in a few SBs of an 8 x 15 grid): the host
+  half counts the SBs without units that the kernel passes over;
+- the CUDA kernel against its plain version (needs the card), also on
+  the sparse frames, and a frame without units launching nothing.
 """
 
 import ctypes
@@ -34,11 +37,12 @@ from easyav1_tpu.container.webm import TrackType, WebMDemuxer
 from easyav1_tpu.video.av1.backend import AV1Backend
 from easyav1_tpu.video.av1.recon import jax_exec as JX
 from easyav1_tpu.video.av1.recon.exec_ref import UnitExecutor
+from easyav1_tpu_torch import trace
 from easyav1_tpu_torch.native.pipe import export_units, first_frame_inputs
 from easyav1_tpu_torch.unit_programs import (MI_COLS, MI_ROWS, program_frame,
                                              random_program, random_sb_program)
 from easyav1_tpu_torch.video.av1.recon import records as R
-from easyav1_tpu_torch.video.av1.recon.inter_exec import ii_masks
+from easyav1_tpu_torch.video.av1.recon.inter_exec import InterRecon, ii_masks
 from easyav1_tpu_torch.video.av1.recon.intra_exec import IntraRecon
 from easyav1_tpu_torch.video.av1.recon.intra_strip import (
     sb_grid, sb_schedule, schedule_to, sequential_schedule,
@@ -440,11 +444,11 @@ def test_level_order_is_topological(tag):
             assert (at[dep] < at[u]).all(), (tag, p, u)
 
 
-def _sb_program_inputs(seed, bd, interintra):
-    """(fields, resid, dims, base, masks) of `random_sb_program` as the
-    executor takes them (numpy; masks None where a plane has no
-    interintra unit)."""
-    prog = random_sb_program(seed, bd=bd, interintra=interintra)
+def _sb_program_inputs(seed, bd, interintra, **grid):
+    """(fields, resid, dims, base, masks) of `random_sb_program` (grid:
+    its size, SB size and occupied SBs) as the executor takes them
+    (numpy; masks None where a plane has no interintra unit)."""
+    prog = random_sb_program(seed, bd=bd, interintra=interintra, **grid)
     fields = R.preprocess_units(prog["units"], prog["dims"])
     masks = []
     for p in range(3):
@@ -480,6 +484,81 @@ def test_level_order_gives_sequential_planes(seed, bd, interintra):
                                want[0] if p else None,
                                torch.from_numpy(base[p].copy()), mk[p])
         _assert_equal(got.numpy(), want[p].numpy(), f"plane {p}")
+
+
+# A sparse inter frame: units in a few SBs of a grid of 8 x 15 SBs (the
+# last row and column partial), in runs side by side, on diagonals both
+# ways (the above-right and the left waits after runs of empty SBs), at
+# a row's end, in luma alone at (0, 0) and in chroma alone at (5, 3)
+_SPARSE = {(1, 3), (2, 2), (3, 1), (2, 7), (2, 8), (4, 5), (5, 6), (3, 14),
+           (7, 14), (6, 10), (6, 11), (6, 12)}
+LAYOUTS = {"sparse": (_SPARSE | {(0, 0)}, _SPARSE | {(5, 3)},
+                      _SPARSE | {(5, 3)}),
+           # the sequential schedule: one SB a plane, luma without units
+           "chroma, sequential": (set(), {(5, 3)}, {(5, 3)}),
+           "none": (set(), set(), set())}
+# seed, bits, SB size, interintra units (the scan's instantiation), layout
+SPARSE_PROGRAMS = [(801, 8, 64, False, "sparse"), (802, 10, 64, True, "sparse"),
+                   (803, 8, 128, False, "sparse"),
+                   (804, 10, 128, True, "sparse"),
+                   (812, 8, 64, True, "chroma, sequential"),
+                   (806, 8, 128, False, "none")]
+
+
+def _sparse_grid(sb, layout):
+    """`random_sb_program`'s size, SB size and occupied SBs for a sparse
+    program: 8 x 15 SBs, the last row and column partial."""
+    q = sb // 4
+    return {"mi_rows": 8 * q - 3, "mi_cols": 15 * q - 3, "sb": sb,
+            "occupied": LAYOUTS[layout]}
+
+
+def _held_sbs(fields, sb):
+    """Each plane's set of the (row, column) of the SBs that hold units."""
+    return [{(int(y) // (sb >> (p > 0)), int(x) // (sb >> (p > 0)))
+             for x, y in f[:, [R.F_X, R.F_Y]]} for p, f in enumerate(fields)]
+
+
+@pytest.mark.parametrize("seed,bd,sb,interintra,layout", SPARSE_PROGRAMS)
+def test_host_half_counts_the_empty_sbs(seed, bd, sb, interintra, layout):
+    """The host half of an inter frame (`InterRecon.prepare`) on a sparse
+    program counts the (plane, SB) pairs of its schedule that hold no
+    unit as "strip.empty_sbs": all but the SBs that hold units, one SB a
+    plane under the sequential schedule, and none for a frame without
+    units, which launches nothing.  The program covers what the card
+    test needs: chroma CfL, in the SB of chroma alone too, and
+    interintra units where asked."""
+    grid = _sparse_grid(sb, layout)
+    prog = random_sb_program(seed, bd=bd, interintra=interintra, **grid)
+    ir = InterRecon(grid["mi_rows"], grid["mi_cols"], 1, 1, bd, 3, sb,
+                    torch.device("cpu"))
+    before = trace.counters()["strip.empty_sbs"]
+    fields, _resid, masks, (sbh, sbw, spans, _order) = ir.prepare(
+        prog["units"], np.zeros((0, 8), np.int32), np.zeros(0, np.int32),
+        intrabc="sequential" in layout)
+    got = trace.counters()["strip.empty_sbs"] - before
+    held = _held_sbs(fields, sb)
+    assert all(h <= o for h, o in zip(held, LAYOUTS[layout]))
+    if layout == "none":
+        assert got == 0 and not any(held)
+        return
+    if "sequential" in layout:
+        assert (sbh, sbw) == ir.dims[0] and got == 1 and not held[0]
+    else:
+        cols = 15
+        rows = spans.shape[1] // cols
+        assert (sbh, sbw, rows) == (sb, sb, 8)
+        assert got == sum(rows * cols - len(h) for h in held)
+        assert [{divmod(k, cols) for k in np.flatnonzero(sp[:, 1] > sp[:, 0])}
+                for sp in spans] == held
+        assert (0, 0) in held[0] - held[1] and (3, 14) in held[0]
+    assert (5, 3) in held[1] - held[0]
+    cfl = [(int(y) // (sb // 2), int(x) // (sb // 2))
+           for p in (1, 2) for x, y, c, a in fields[p][
+               :, [R.F_X, R.F_Y, R.F_CLS, R.F_ALPHA]]
+           if c == R.K_CFL and a != 0]
+    assert (5, 3) in cfl
+    assert interintra == any(m is not None for m in masks)
 
 
 @pytest.mark.parametrize("seed", [711, 712])
@@ -619,3 +698,50 @@ def test_kernel_vs_plain_bench_key_frames(tag, cuda_device):
     want = strip_exec_frame_plain(key["fields"], key["resid"], dims, bd)
     for p, (a, b) in enumerate(zip(got, want)):
         _assert_equal(a.cpu().numpy(), b.cpu().numpy(), f"{tag} plane {p}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,bd,sb,interintra,layout", SPARSE_PROGRAMS)
+def test_kernel_passes_over_empty_sbs(seed, bd, sb, interintra, layout,
+                                      cuda_device):
+    """The kernel in place on a sparse program's random base planes
+    (units in a few SBs: side by side and on diagonals after runs of
+    empty SBs, at a row's end, in luma alone and in chroma alone, CfL;
+    64- and 128-pixel SBs, 8 and 10 bits, interintra masks, the
+    sequential schedule), against its plain version, exactly, every
+    plane; "strip.empty_sbs" rises by the schedule's (plane, SB) pairs
+    without units.  A frame without units launches nothing, counts in
+    "strip.skipped", and hands back its base untouched."""
+    fields, resid, dims, base, masks = _sb_program_inputs(
+        seed, bd, interintra, **_sparse_grid(sb, layout))
+    t = [torch.from_numpy(f).to(cuda_device) for f in fields]
+    r = [torch.from_numpy(x).to(cuda_device) for x in resid]
+    mk = [None if m is None else torch.from_numpy(m).to(cuda_device)
+          for m in masks]
+    before = trace.counters()
+    schedule = (sequential_schedule(fields, dims) if "sequential" in layout
+                else sb_schedule(fields, dims, sb))
+    got = strip_exec_frame(t, r, dims, bd, schedule_to(schedule, cuda_device),
+                           [torch.from_numpy(b.copy()).to(cuda_device)
+                            for b in base], mk)
+    after = trace.counters()
+    torch.cuda.synchronize()
+    want = strip_exec_frame_plain(t, r, dims, bd,
+                                  [torch.from_numpy(b.copy()).to(cuda_device)
+                                   for b in base], mk)
+    for p, (a, b) in enumerate(zip(got, want)):
+        _assert_equal(a.cpu().numpy(), b.cpu().numpy(), f"plane {p}")
+    rose = {k: after[k] - before[k] for k in (
+        "launches.intra_wavefront_kernel", "strip.skipped", "strip.empty_sbs")}
+    spans = schedule[2]
+    if layout == "none":
+        assert rose == {"launches.intra_wavefront_kernel": 0,
+                        "strip.skipped": 1, "strip.empty_sbs": 0}
+        for p, (a, b) in enumerate(zip(got, base)):
+            _assert_equal(a.cpu().numpy(), b, f"plane {p} base")
+        return
+    empty = int(np.count_nonzero(spans[:, :, 0] == spans[:, :, 1]))
+    assert rose == {"launches.intra_wavefront_kernel": 1, "strip.skipped": 0,
+                    "strip.empty_sbs": empty}
+    assert empty == (1 if "sequential" in layout else 3 * 120 - sum(
+        len(h) for h in _held_sbs(fields, sb)))
