@@ -27,6 +27,8 @@ from typing import List, Optional
 
 import numpy as np
 
+from easyav1_tpu_torch import trace
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _BUILD = os.path.join(os.path.dirname(_DIR), "_build")
 _SO = os.path.join(_BUILD, "libeasyav1.so")
@@ -220,8 +222,7 @@ class _TileDesc(ctypes.Structure):
 def decode_threads() -> int:
     """Worker count for tile-parallel entropy decode.  EASYAV1_THREADS
     overrides; 0/unset = auto (cpu count, dav1d-auto analog
-    easyav1.c:1401-1408).  The effective count is further capped by the
-    frame's tile count inside the C entry."""
+    easyav1.c:1401-1408).  A frame's count is `tile_workers`."""
     try:
         n = int(os.environ.get("EASYAV1_THREADS", "0"))
     except ValueError:
@@ -229,6 +230,22 @@ def decode_threads() -> int:
     if n <= 0:
         n = os.cpu_count() or 1
     return max(1, n)
+
+
+# av1_decode_tiles_mt's largest pool
+_MAX_WORKERS = 64
+
+
+def tile_workers(hdr, threads: int = 0) -> int:
+    """The threads that entropy-decode a frame: 1 for a frame of one
+    tile, else `threads` (or `decode_threads()` where it is 0), at most
+    one a tile and `_MAX_WORKERS`, as the C entry caps them.  More than
+    1 takes the tile-parallel entry, `av1_decode_tiles_mt`."""
+    n_tiles = hdr.tile.cols * hdr.tile.rows
+    if n_tiles == 1:
+        return 1
+    n = threads if threads > 0 else decode_threads()
+    return min(n, n_tiles, _MAX_WORKERS)
 
 
 class _TileOut(ctypes.Structure):
@@ -667,8 +684,7 @@ def _run_tiles(lib, seq, hdr, tiles, cdf_in=None, want_cdf=False,
     # one FrameParams for every tile: only cdf_out differs per tile
     # (each tile restarts from cdf_in; the C decoder never writes fp)
     fp, keep = _build_fp(hdr, seq, cdf_in, None, tpl)
-    n_threads = (threads if threads > 0 else decode_threads()) \
-        if n_tiles > 1 else 1
+    n_threads = tile_workers(hdr, threads)
     if n_threads > 1:
         # tile-parallel path (dav1d thread_task.c analog): workers pull
         # whole tiles; merge relocates append-buffer indices in C
@@ -706,6 +722,8 @@ def _run_tiles(lib, seq, hdr, tiles, cdf_in=None, want_cdf=False,
                                      ctypes.byref(out))
             if rc != 0:
                 return None
+    trace.count("entropy.tiles", n_tiles)
+    trace.count("entropy.parallel", int(n_threads > 1))
     # hand fp back for the recon stage (cdf pointers cleared: their
     # backing buffers die with `keep`); keep rides along so the tpl
     # arrays fp still points at outlive the recon call

@@ -513,7 +513,9 @@ def decode_and_recon(seq, hdr, tiles: List[bytes], device: torch.device,
                                 for s in set(hdr.ref_frame_idx))):
         return None
     with _Stages() as clock:
-        clock.tag(kind="key" if hdr.frame_is_intra else "inter")
+        clock.tag(kind="key" if hdr.frame_is_intra else "inter",
+                  tiles=hdr.tile.cols * hdr.tile.rows,
+                  workers=nat.tile_workers(hdr, threads))
         res = nat._run_tiles(lib, seq, hdr, tiles, cdf_in=cdf_in,
                              want_cdf=want_cdf, tpl=tpl, threads=threads)
         if res is None:

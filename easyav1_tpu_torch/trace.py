@@ -18,8 +18,10 @@ The spans, by layer:
 - the decode thread: "decode" (one a packet), "headers", "motion_field",
   "tmvs";
 - the pipe: one "frame" a frame that reaches `pipe.decode_and_recon`
-  (attribute "kind", "key" for a frame coded intra or "inter", and
-  "declined", the reason, where the C recon makes the frame), and under
+  (attribute "kind", "key" for a frame coded intra or "inter", "tiles",
+  the frame's tile count, "workers", the threads that entropy-decode it,
+  more than 1 on the tile-parallel path, and "declined", the reason,
+  where the C recon makes the frame), and under
   it the stages, each closed by a mark of `Stages`: "entropy", "plan",
   "prepare", "pack", "compose", "upload", "mc", "intra", "lf_cdef",
   "sr", "lr", "tail", "grain", and "recon" (the C recon: the postfilter
@@ -35,11 +37,12 @@ The spans, by layer:
 
 `count(name, n)` adds to one of the port's counters, at the site that
 does what it counts, and `counters()` reads them all: frames and
-fallbacks of the pipe, each hand kernel's launches, the strip kernel's
-units and levels, the SBs it passes over and the frames it skips, and
-the film grain template sets made.  Counters are never reset: a reader
-takes the difference of two readings.  This module imports nothing of
-the port, which every layer of it imports.
+fallbacks of the pipe, the tiles entropy-decoded and the frames that
+took the tile-parallel path, each hand kernel's launches, the strip
+kernel's units and levels, the SBs it passes over and the frames it
+skips, and the film grain template sets made.  Counters are never
+reset: a reader takes the difference of two readings.  This module
+imports nothing of the port, which every layer of it imports.
 """
 
 from __future__ import annotations
@@ -265,8 +268,11 @@ def count(name: str, n: int = 1) -> None:
 def counters() -> Counter:
     """A copy of the port's counters, a name that was never counted
     reading 0: "pipe.frames" (frames that reached the pipe),
-    "pipe.fallbacks" (those declined to the C recon), "fg.templates"
-    (film grain template sets made), "strip.units" and "strip.levels"
+    "pipe.fallbacks" (those declined to the C recon), "entropy.tiles"
+    (tiles the C decoder entropy-decoded), "entropy.parallel" (frames
+    whose tiles it decoded on more than one thread,
+    `av1_decode_tiles_mt`), "fg.templates" (film grain template sets
+    made), "strip.units" and "strip.levels"
     (the strip kernel's units launched, and its steps: the levels summed
     over the SBs, a unit each under the sequential schedule),
     "strip.empty_sbs" (the (plane, SB) pairs without units of the

@@ -1,7 +1,8 @@
 """A cell of the benchmark played under the port's tracer, on the card:
 kernel time by the span that launched it, the device's idle time by the
 span the host was in, the span readers' per-layer metrics, the counters,
-and what the tracer costs.
+the pipe's frames by kind, tiles and entropy threads, and what the tracer
+costs.
 
     python3 tools/torch_trace_report.py --workload <cell> --seed <n> \
         [--seconds 10] [--rounds 6] [--out report.json]
@@ -222,6 +223,14 @@ def report(workload, seed, seconds, rounds):
         names[s["name"]] = names.get(s["name"], 0) + 1
     copied = {k: sum(s["attrs"].get(k, 0) for s in prof["spans"]) / frames
               for k in ("h2d_bytes", "d2h_bytes")}
+    # the frames the pipe made, by kind, tiles and entropy threads
+    shapes = {}
+    for s in prof["spans"]:
+        if s["name"] == "frame":
+            a = s["attrs"]
+            key = (f"{a.get('kind')}, {a.get('tiles')} tiles, "
+                   f"{a.get('workers')} workers")
+            shapes[key] = shapes.get(key, 0) + 1
     return {
         "workload": workload, "seed": seed,
         "device": torch.cuda.get_device_name(),
@@ -247,6 +256,7 @@ def report(workload, seed, seconds, rounds):
         "counters_per_frame": {k: v / frames
                                for k, v in prof["counters"].items()},
         "bytes_per_frame": copied,
+        "frame_spans": shapes,
         "on_cost": cost}
 
 
